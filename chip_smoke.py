@@ -3,25 +3,33 @@
 their plain PyTorch versions.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc and the repo
-    python3 chip_smoke.py --profile  # also pairs/s at B = 8 and 32, and a
-                                     # torch.profiler table in chiprun_out/
+    python3 chip_smoke.py --profile  # also pairs/s (ORB at B = 8 and 32,
+                                     # SIFT A and B at B = 8) and a
+                                     # torch.profiler table per config in
+                                     # the output directory (OUT_DIR)
 
 Phases (any failure exits non-zero before the final line):
   1. card: `nvidia-smi` name and power limit, torch and CUDA versions;
-  2. build: every CUDA kernel of rpe_tpu_torch/csrc with nvcc (sm_90a),
+  2. build: every CUDA source of rpe_tpu_torch/csrc with nvcc (sm_90a),
      printing the ptxas resource lines;
   3. kernels: on a synthetic 1241x376 sequence (9 frames, made from a seed),
-     each kernel against its plain version at the main path's shapes --
-     K1 on the (3200, 1280) atlas, K2 on the real (100, 72) band tables,
-     K3 at 4096 x 4096 descriptors, K4 on 8 x 256 hypotheses' coefficients --
+     each kernel against its plain version at the shapes one chunk of the
+     main paths gives it -- K1 on the 9 frames' (3200, 1280) atlases, K2 on
+     their real (100, 72) band tables, K3 and K6 (Hamming) on the 8 pairs'
+     4096 x 4096 ORB descriptors, K7 and K6 (L2) on the 8 pairs' 4096 x
+     4096 x 128 SIFT descriptors, K4 on 8 x 256 hypotheses' coefficients --
      with its contract, its time (CUDA events, L2 flushed before each
      launch), the plain version's time, a library call's time where one
      computes the same function, and its bound on the H100;
-  4. main path: `estimate_sequence_batched` at EstimatorConfig() on the 9
-     frames (8 pairs) with every launch counter reset just before and read
-     just after; the first 3 frames again with device="cpu" (plain
-     versions), which must agree (equal `valid`, <= 0.5 deg rotation);
-     rotation error against the scene's ground truth; pairs/s.
+  4. paths: `estimate_sequence_batched` on the 9 frames (8 pairs) at
+     EstimatorConfig() (ORB, Hamming cross-check: K1-K4), SIFT with L2
+     cross-check (config A: K7, K4), SIFT with the L2 Lowe ratio test
+     (config B: K6-L2, K4), and ORB with the Hamming ratio test (K1, K2,
+     K6-Hamming, K4). Every launch counter is reset just before each path
+     and read just after; each path must launch exactly its kernels. Each
+     path runs its first 3 frames again with device="cpu" (plain versions),
+     which must agree (equal `valid`, <= 0.5 deg rotation); rotation error
+     against the scene's ground truth; pairs/s.
 The line before the last is the kernel JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -66,7 +74,7 @@ def main() -> None:
     import numpy as np
 
     from rpe_tpu_torch import rng
-    from rpe_tpu_torch.config import EstimatorConfig
+    from rpe_tpu_torch.config import EstimatorConfig, MatcherConfig
     from rpe_tpu_torch.geometry import five_point as fp
     from rpe_tpu_torch.geometry.epipolar import normalize_points
     from rpe_tpu_torch.geometry.ransac import gather_points, \
@@ -76,8 +84,10 @@ def main() -> None:
     from rpe_tpu_torch.ops.extract import extract_brief, extract_brief_plain
     from rpe_tpu_torch.ops.fast import fast_harris_rank_map, \
         fast_harris_rank_map_plain
-    from rpe_tpu_torch.ops.match import mutual_nn_hamming, \
-        mutual_nn_hamming_plain
+    from rpe_tpu_torch.ops.match import argmin_mismatches, \
+        l2sq_distance_matrix, mutual_nn_hamming, mutual_nn_hamming_plain, \
+        mutual_nn_l2, mutual_nn_l2_plain, near_tie_ok, row_top2, \
+        row_top2_plain
     from rpe_tpu_torch.ops.orb import PATCH, atlas_keypoints
     from rpe_tpu_torch.pipeline.estimator import estimate_sequence_batched
     from rpe_tpu_torch.utils.device import full_precision
@@ -103,8 +113,8 @@ def main() -> None:
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     kernels.build_all()
-    say(f"build: {len(kernels.SOURCES)} kernels in "
-        f"{time.perf_counter() - t0:.1f} s")
+    say(f"build: {len(kernels.SOURCES)} sources ({len(kernels.KERNELS)} "
+        f"kernels) in {time.perf_counter() - t0:.1f} s")
     with open(OUT_DIR / "chip_smoke_build.log", "w") as f:
         for k, log in kernels.PTXAS_LOG.items():
             f.write(f"--- {k}\n{log}\n")
@@ -115,6 +125,11 @@ def main() -> None:
 
     # ---- 3. kernels against their plain versions ------------------------------
     cfg = EstimatorConfig()
+    cfg_a = EstimatorConfig(feature_method="SIFT",
+                            matcher=MatcherConfig(norm_type="l2"))
+    cfg_b = EstimatorConfig(feature_method="SIFT", matcher=MatcherConfig(
+        norm_type="l2", cross_check=False))
+    cfg_orb_ratio = EstimatorConfig(matcher=MatcherConfig(cross_check=False))
     o = cfg.orb
     frames, K, (R_gt, _) = make_sequence(9, H, W, seed=0)
     imgs = torch.from_numpy(frames).to(dev)
@@ -148,25 +163,26 @@ def main() -> None:
         if not ok:
             failures.append(f"{name}: {msg}")
 
-    # K1 -- FAST/Harris rank map + blur on one frame's atlas
-    kp = atlas_keypoints(imgs[:1], o.nfeatures, o.nlevels, o.scale_factor,
+    # K1 -- FAST/Harris rank map + blur on the 9 frames' atlases
+    kp = atlas_keypoints(imgs, o.nfeatures, o.nlevels, o.scale_factor,
                          o.fast_threshold, o.max_kpts)
     atlas = kp["atlas"].contiguous()
-    _, ha, wp = atlas.shape
+    nf, ha, wp = atlas.shape
     rk, bk = fast_harris_rank_map(atlas, o.fast_threshold)
     rp, bp = fast_harris_rank_map_plain(atlas, o.fast_threshold)
     m = 8
-    a, b = rk[0, m:-m, m:-m], rp[0, m:-m, m:-m]
+    a, b = rk[:, m:-m, m:-m], rp[:, m:-m, m:-m]
     same_set = bool(torch.equal(torch.isfinite(a), torch.isfinite(b)))
     fin = torch.isfinite(b)
     rel = float(((a[fin] - b[fin]).abs() / (b[fin].abs() + 1e-3)).max()) \
         if bool(fin.any()) else 0.0
-    blur_err = float((bk[0, m:-m, m:-m] - bp[0, m:-m, m:-m]).abs().max())
+    blur_err = float((bk[:, m:-m, m:-m] - bp[:, m:-m, m:-m]).abs().max())
     check("K1 fast_harris", same_set and rel < 1e-3 and blur_err < 1e-3,
-          f"corner set equal={same_set} ({int(fin.sum())} corners), "
+          f"{nf} atlases, corner set equal={same_set} ({int(fin.sum())} "
+          f"corners), "
           f"harris max rel err {rel:.3e} (< 1e-3), blur max abs err "
           f"{blur_err:.3e} (< 1e-3)")
-    px = ha * wp
+    px = nf * ha * wp
     b_ms, b_by = bound(3 * 4 * px, 180 * px, FP32_OPS_PER_S)
     rows["fast_harris"] = dict(
         name="fast_harris", route="cuda",
@@ -178,14 +194,14 @@ def main() -> None:
             atlas, o.fast_threshold), iters=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    # K2 -- extraction + BRIEF on that frame's real band tables
+    # K2 -- extraction + BRIEF on those frames' real band tables
     tb = band_tables(ha, wp, kp["xy_atlas"], kp["valid"], patch=PATCH,
                      cap=o.extract_cap, band=o.band)
     blurred = kp["blurred"].contiguous()
     args = (atlas, blurred, tb["tbl_x0"], tb["rel_y"], tb["band"])
     bits_k, m10_k, m01_k = extract_brief(*args)
     bits_p, m10_p, m01_p = extract_brief_plain(*args)
-    live = (tb["rel_y"] >= 0).reshape(1, -1)
+    live = (tb["rel_y"] >= 0).reshape(nf, -1)
     agree = float((bits_k == bits_p)[live].float().mean())
     mom_ok = bool(torch.allclose(m10_k, m10_p, rtol=1e-4, atol=2.0)
                   and torch.allclose(m01_k, m01_p, rtol=1e-4, atol=2.0))
@@ -196,7 +212,7 @@ def main() -> None:
                        and (m01_k[~live] == 0).all())
     nb, cap = tb["tbl_x0"].shape[1:]
     check("K2 extract_brief", agree >= 0.999 and mom_ok and parked_zero,
-          f"{int(live.sum())} live of {nb * cap} slots, bit agreement "
+          f"{int(live.sum())} live of {nf * nb * cap} slots, bit agreement "
           f"{agree:.6f} (>= 0.999), moments allclose(rtol 1e-4, atol 2)="
           f"{mom_ok} (max abs err {mom_err:.3e}), parked slots zero="
           f"{parked_zero}")
@@ -205,7 +221,8 @@ def main() -> None:
     # read once, the two tables, and the outputs (bits, m10, m01)
     union_px = patch_union_px(torch, tb["tbl_x0"], tb["rel_y"], tb["band"],
                               ha, wp, PATCH)
-    k2_bytes = 2 * 4 * union_px + 2 * 4 * nb * cap + nb * cap * (256 + 8)
+    k2_bytes = (2 * 4 * union_px + 2 * 4 * nf * nb * cap
+                + nf * nb * cap * (256 + 8))
     say(f"K2 bound: {union_px} of {px} atlas px under live patches")
     k2_ops = n_live * (4 * PATCH * PATCH + 256 * 12)
     b_ms, b_by = bound(k2_bytes, k2_ops, FP32_OPS_PER_S)
@@ -217,15 +234,26 @@ def main() -> None:
         plain_ms=cuda_ms(lambda: extract_brief_plain(*args), iters=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    # detections of all 9 frames feed K3 and K4 at main-path shapes
+    # detections of all 9 frames feed K3, K6-Hamming and K4 at main-path
+    # shapes
     from rpe_tpu_torch.pipeline.estimator import detect_features, \
         match_features
     with torch.no_grad():
         dets = detect_features(imgs, cfg)
+    npair = nf - 1
 
-    # K3 -- Hamming mutual NN of frames 0 and 1 at 4096 x 4096
-    b1, b2 = dets["bits"][:1].contiguous(), dets["bits"][1:2].contiguous()
-    v1, v2 = dets["valid"][:1].contiguous(), dets["valid"][1:2].contiguous()
+    def pair_inputs(d, key):
+        """The chunk's pairs, as the paths' matchers get them: frames 0-7
+        against frames 1-8."""
+        return (d[key][:-1].contiguous(), d[key][1:].contiguous(),
+                d["valid"][:-1].contiguous(), d["valid"][1:].contiguous())
+
+    def valid_cells(v1, v2):
+        """Valid rows x valid columns, summed over the pairs."""
+        return float((v1.sum(-1).double() * v2.sum(-1).double()).sum())
+
+    # K3 -- Hamming mutual NN of the 8 pairs at 4096 x 4096
+    b1, b2, v1, v2 = pair_inputs(dets, "bits")
     outk = mutual_nn_hamming(b1, b2, v1, v2)
     outp = mutual_nn_hamming_plain(b1, b2, v1, v2)
     same = [bool(torch.equal(x, y)) for x, y in zip(outk, outp)]
@@ -233,16 +261,17 @@ def main() -> None:
     fin = outp[0] < 3.0e38
     k3_err = float((outk[0][fin] - outp[0][fin]).abs().max()) \
         if bool(fin.any()) else 0.0
+    nv1, nv2 = int(v1.sum()), int(v2.sum())
     check("K3 match_hamming", all(same),
-          f"{n1}x{n2}, {int(v1.sum())}/{int(v2.sum())} valid, identical "
-          f"best_d/nn12/nn21 = {same}")
-    a16 = b1[0].to(torch.bfloat16)
-    c16 = b2[0].to(torch.bfloat16)
+          f"{npair} pairs of {n1}x{n2}, {nv1}/{nv2} valid rows/columns, "
+          f"identical best_d/nn12/nn21 = {same}")
+    a16 = b1.to(torch.bfloat16)
+    c16 = b2.to(torch.bfloat16).transpose(-1, -2)
     # the valid rows' and columns' bits, both masks and the three outputs;
     # distances over valid rows x valid columns only
-    nv1, nv2 = int(v1.sum()), int(v2.sum())
-    b_ms, b_by = bound((nv1 + nv2) * 256 + n1 + n2 + 4 * (2 * n1 + n2),
-                       2.0 * nv1 * nv2 * 256, INT8_TC_OPS_PER_S)
+    ham_ops = 2.0 * valid_cells(v1, v2) * 256
+    b_ms, b_by = bound((nv1 + nv2) * 256 + npair * (n1 + n2)
+                       + 4 * npair * (2 * n1 + n2), ham_ops, INT8_TC_OPS_PER_S)
     rows["match_hamming"] = dict(
         name="match_hamming", route="cuda",
         source="rpe_tpu_torch/csrc/match_hamming.cu",
@@ -252,7 +281,93 @@ def main() -> None:
         plain_ms=cuda_ms(lambda: mutual_nn_hamming_plain(b1, b2, v1, v2),
                          iters=3),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.matmul(a16, c16.T)))
+        library_ms=cuda_ms(lambda: torch.matmul(a16, c16)))
+
+    # K6, Hamming mode -- row top-2 of the same ORB bits (exact)
+    outk = row_top2(b1, b2, v1, v2, "hamming")
+    outp = row_top2_plain(b1, b2, v1, v2, "hamming")
+    same = [bool(torch.equal(x, y)) for x, y in zip(outk, outp)]
+    check("K6 row_top2_hamming", all(same),
+          f"{npair} pairs of {n1}x{n2}, identical d1/a1/d2 = {same}, rows "
+          f"with a second valid column {int((outp[2] < 3.0e38).sum())}")
+    b_ms, b_by = bound((nv1 + nv2) * 256 + npair * (n1 + n2)
+                       + 4 * 3 * npair * n1, ham_ops, INT8_TC_OPS_PER_S)
+    rows["row_top2_hamming"] = dict(
+        name="row_top2_hamming", route="cuda",
+        source="rpe_tpu_torch/csrc/match_hamming.cu",
+        replaces="rpe_tpu/ops/match_pallas.py:111",
+        max_abs_err=float(max((outk[0] - outp[0]).abs().max(),
+                              (outk[2] - outp[2]).abs().max())),
+        ms=cuda_ms(lambda: row_top2(b1, b2, v1, v2, "hamming")),
+        plain_ms=cuda_ms(lambda: row_top2_plain(b1, b2, v1, v2, "hamming"),
+                         iters=3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.matmul(a16, c16)))
+    del a16, c16
+
+    # K7 and K6 (L2 mode) -- on the SIFT descriptors of the 8 pairs
+    with torch.no_grad():
+        sdets = detect_features(imgs, cfg_a)
+    s1, s2, w1, w2 = pair_inputs(sdets, "desc")
+    del sdets
+    sn1, sn2 = s1.shape[1], s2.shape[1]
+    sv1, sv2 = int(w1.sum()), int(w2.sum())
+    big = torch.full((), 3.0e38, device=dev)
+    Dm = torch.where(w1[..., :, None] & w2[..., None, :],
+                     l2sq_distance_matrix(s1, s2), big)
+    outk = mutual_nn_l2(s1, s2, w1, w2)
+    outp = mutual_nn_l2_plain(s1, s2, w1, w2)
+    rows_ok = w1 & (outp[0] < 3.0e38)
+    cols_ok = w2 & (Dm.min(dim=-2).values < 3.0e38)
+    m12 = argmin_mismatches(Dm, outk[1], outp[1], rows_ok, -1)
+    m21 = argmin_mismatches(Dm, outk[2], outp[2], cols_ok, -2)
+    k7_err = float((outk[0] - outp[0])[w1].abs().max())
+    canon = bool((outk[0][~w1] == 3.0e38).all() and (outk[1][~w1] == 0).all()
+                 and (outk[2][~w2] == 0).all())
+    check("K7 match_l2", near_tie_ok(m12) and near_tie_ok(m21)
+          and k7_err <= 1e-5 and canon,
+          f"{npair} pairs of {sn1}x{sn2}x128, {sv1}/{sv2} valid rows/columns;"
+          f" nn12 differs on {m12[0]} of {m12[1]} rows, nn21 on {m21[0]} of "
+          f"{m21[1]} columns (each <= 0.1%, every one a near-tie: largest "
+          f"distance gap {max(m12[2], m21[2]):.3e} <= 1e-5); best_d max abs "
+          f"err {k7_err:.3e} (<= 1e-5); canonical invalid rows/columns="
+          f"{canon}")
+    s2t = s2.transpose(-1, -2)
+    l2_ops = 2.0 * valid_cells(w1, w2) * 128
+    b_ms, b_by = bound((sv1 + sv2) * 128 * 4 + npair * (sn1 + sn2)
+                       + 4 * npair * (2 * sn1 + sn2), l2_ops, FP32_OPS_PER_S)
+    rows["match_l2"] = dict(
+        name="match_l2", route="cuda", source="rpe_tpu_torch/csrc/match_l2.cu",
+        replaces="rpe_tpu/ops/match_pallas.py:242", max_abs_err=k7_err,
+        ms=cuda_ms(lambda: mutual_nn_l2(s1, s2, w1, w2)),
+        plain_ms=cuda_ms(lambda: mutual_nn_l2_plain(s1, s2, w1, w2),
+                         iters=3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.matmul(s1, s2t)))
+
+    outk = row_top2(s1, s2, w1, w2, "l2")
+    outp = row_top2_plain(s1, s2, w1, w2, "l2")
+    m1 = argmin_mismatches(Dm, outk[1], outp[1], rows_ok, -1)
+    k6_err = float(max((outk[0] - outp[0])[w1].abs().max(),
+                       (outk[2] - outp[2])[w1].abs().max()))
+    canon = bool((outk[0][~w1] == 3.0e38).all() and (outk[1][~w1] == 0).all()
+                 and (outk[2][~w1] == 3.0e38).all())
+    check("K6 row_top2_l2", near_tie_ok(m1) and k6_err <= 1e-5 and canon,
+          f"{npair} pairs of {sn1}x{sn2}x128, a1 differs on {m1[0]} of "
+          f"{m1[1]} rows (<= 0.1%, each a near-tie: largest gap "
+          f"{m1[2]:.3e} <= 1e-5); d1/d2 max abs err {k6_err:.3e} (<= 1e-5); "
+          f"canonical invalid rows={canon}")
+    b_ms, b_by = bound((sv1 + sv2) * 128 * 4 + npair * (sn1 + sn2)
+                       + 4 * 3 * npair * sn1, l2_ops, FP32_OPS_PER_S)
+    rows["row_top2_l2"] = dict(
+        name="row_top2_l2", route="cuda", source="rpe_tpu_torch/csrc/match_l2.cu",
+        replaces="rpe_tpu/ops/match_pallas.py:111", max_abs_err=k6_err,
+        ms=cuda_ms(lambda: row_top2(s1, s2, w1, w2, "l2")),
+        plain_ms=cuda_ms(lambda: row_top2_plain(s1, s2, w1, w2, "l2"),
+                         iters=3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.matmul(s1, s2t)))
+    del Dm, s1, s2, s2t, outk, outp
 
     # K4 -- 5-point roots on the coefficients of 8 pairs x 256 samples
     with torch.no_grad():
@@ -323,62 +438,79 @@ def main() -> None:
             f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
             f"{lib} ms ({card})")
 
-    # ---- 4. main path ------------------------------------------------------------
+    # ---- 4. paths ---------------------------------------------------------------
     keys_np = np.stack([np.array([0, i], np.uint32) for i in range(8)])
-    estimate_sequence_batched(frames, K, keys_np, cfg, device=dev)  # warm-up
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    out = estimate_sequence_batched(frames, K, keys_np, cfg, device=dev)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    say(f"main path launches: {launches}")
-    for k, n in launches.items():
-        rows[k]["launches"] = n
-        if n <= 0:
-            failures.append(f"kernel {k} was not launched on the main path")
-    valid_cuda = out["valid"].cpu().numpy()
-    R_cuda = out["R"].cpu().numpy()
-    if not np.isfinite(R_cuda).all() or R_cuda.shape != (8, 3, 3):
-        failures.append(f"main path R not finite (8, 3, 3): {R_cuda.shape}")
-    err_gt = rotation_error_deg(R_cuda, R_gt[None])
-    say(f"main path: valid {valid_cuda.tolist()}, matches "
-        f"{out['num_matches'].cpu().tolist()}, inliers "
-        f"{out['num_inliers'].cpu().tolist()}")
-    say(f"rotation error vs ground truth (deg): "
-        f"{[round(float(e), 4) for e in err_gt]}")
-    say(f"throughput: {8 / dt:.3f} pairs/s (8 pairs, 1241x376, "
-        f"EstimatorConfig(), host clock + synchronize, {dt * 1e3:.1f} ms; "
-        f"{card})")
-
-    t0 = time.perf_counter()
-    cpu = estimate_sequence_batched(frames[:3], K, keys_np[:2], cfg,
-                                    device="cpu")
-    say(f"CPU run of frames 0-2: {time.perf_counter() - t0:.1f} s")
-    valid_cpu = cpu["valid"].numpy()
-    d_rot = rotation_error_deg(R_cuda[:2], cpu["R"].numpy())
-    check("CUDA vs CPU", bool((valid_cpu == valid_cuda[:2]).all())
-          and bool((d_rot <= 0.5).all()),
-          f"valid cuda {valid_cuda[:2].tolist()} cpu {valid_cpu.tolist()}, "
-          f"rotation difference (deg) {[float(x) for x in d_rot]} (<= 0.5), "
-          f"matches cuda {out['num_matches'][:2].cpu().tolist()} cpu "
-          f"{cpu['num_matches'].tolist()}")
+    orb = ("fast_harris", "extract_brief")
+    paths = [
+        ("ORB cross-check", cfg, orb + ("match_hamming", "five_point_roots")),
+        ("SIFT A (L2 cross-check)", cfg_a, ("match_l2", "five_point_roots")),
+        ("SIFT B (L2 ratio)", cfg_b, ("row_top2_l2", "five_point_roots")),
+        ("ORB ratio", cfg_orb_ratio,
+         orb + ("row_top2_hamming", "five_point_roots")),
+    ]
+    summary = {}
+    for label, pcfg, expect in paths:
+        estimate_sequence_batched(frames, K, keys_np, pcfg, device=dev)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = estimate_sequence_batched(frames, K, keys_np, pcfg, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        say(f"[{label}] launches: {launches}")
+        for k in expect:
+            rows[k].setdefault("launches", launches[k])
+        ran = {k for k, n in launches.items() if n > 0}
+        if ran != set(expect):
+            failures.append(f"{label}: launched {sorted(ran)}, want "
+                            f"{sorted(expect)}")
+        valid_cuda = out["valid"].cpu().numpy()
+        R_cuda = out["R"].cpu().numpy()
+        if not np.isfinite(R_cuda).all() or R_cuda.shape != (8, 3, 3):
+            failures.append(f"{label}: R not finite (8, 3, 3): "
+                            f"{R_cuda.shape}")
+        err_gt = rotation_error_deg(R_cuda, R_gt[None])
+        say(f"[{label}] valid {valid_cuda.tolist()}, matches "
+            f"{out['num_matches'].cpu().tolist()}, inliers "
+            f"{out['num_inliers'].cpu().tolist()}")
+        say(f"[{label}] rotation error vs ground truth (deg): "
+            f"{[round(float(e), 4) for e in err_gt]}")
+        say(f"[{label}] throughput: {8 / dt:.3f} pairs/s (8 pairs, "
+            f"1241x376, host clock + synchronize, {dt * 1e3:.1f} ms; {card})")
+        summary[label] = dict(pairs_per_s=8 / dt, launches=launches,
+                              valid=valid_cuda.tolist(),
+                              rot_err_gt_deg=[float(e) for e in err_gt])
+        t0 = time.perf_counter()
+        cpu = estimate_sequence_batched(frames[:3], K, keys_np[:2], pcfg,
+                                        device="cpu")
+        say(f"[{label}] CPU run of frames 0-2: "
+            f"{time.perf_counter() - t0:.1f} s")
+        valid_cpu = cpu["valid"].numpy()
+        d_rot = rotation_error_deg(R_cuda[:2], cpu["R"].numpy())
+        check(f"[{label}] CUDA vs CPU",
+              bool((valid_cpu == valid_cuda[:2]).all())
+              and bool((d_rot <= 0.5).all()),
+              f"valid cuda {valid_cuda[:2].tolist()} cpu "
+              f"{valid_cpu.tolist()}, rotation difference (deg) "
+              f"{[float(x) for x in d_rot]} (<= 0.5), matches cuda "
+              f"{out['num_matches'][:2].cpu().tolist()} cpu "
+              f"{cpu['num_matches'].tolist()}")
 
     if "--profile" in sys.argv:
-        _profile_main_path(torch, np, estimate_sequence_batched, cfg, card)
+        _profile_main_path(torch, np, estimate_sequence_batched,
+                           {"ORB": cfg, "SIFT A": cfg_a, "SIFT B": cfg_b},
+                           card)
 
     if failures:
         fail("; ".join(failures))
-    line = {"kernels": [rows[k] for k in kernels.SOURCES]}
+    line = {"kernels": [rows[k] for k in kernels.KERNELS]}
     with open(OUT_DIR / "chip_smoke.json", "w") as f:
-        json.dump(dict(line, card=card, pairs_per_s=8 / dt,
-                       rot_err_gt_deg=[float(e) for e in err_gt]), f,
-                  indent=1)
+        json.dump(dict(line, card=card, paths=summary), f, indent=1)
     say(f"nvidia-smi: {card}")
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
@@ -450,56 +582,69 @@ def _five_point_contract(np, fp, coeffs, kern, plain):
     return good, n_roots, worst, zmax, reproduced, n_conv, dz
 
 
-def _profile_main_path(torch, np, estimate, cfg, card):
-    """--profile: pairs/s over repeated chunks of B = 8 and 32 pairs, and a
-    torch.profiler trace of one B = 8 chunk (device time by kernel, device
-    busy share, kernel launches); the tables go to chiprun_out/."""
+def _profile_main_path(torch, np, estimate, cfgs, card):
+    """--profile: pairs/s over repeated chunks -- ORB at B = 8 and 32, the
+    SIFT configs at B = 8 (bench.py's SIFT batch) -- and a torch.profiler
+    trace of one B = 8 chunk per config (device time by kernel, device busy
+    share, kernel launches); the tables go to OUT_DIR."""
     from torch.profiler import ProfilerActivity, profile
 
     from rpe_tpu_torch.utils.synthetic import make_sequence
 
     frames, K, _ = make_sequence(33, H, W, seed=0)
-    for b in (8, 32):
-        keys = np.stack([np.array([0, i], np.uint32) for i in range(b)])
-        estimate(frames[:b + 1], K, keys, cfg)
-        times = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+    for name, cfg in cfgs.items():
+        for b in ((8, 32) if name == "ORB" else (8,)):
+            keys = np.stack([np.array([0, i], np.uint32) for i in range(b)])
             estimate(frames[:b + 1], K, keys, cfg)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        say(f"profile: B={b} chunk ms {[round(t * 1e3, 2) for t in times]}"
-            f" -> median {b / float(np.median(times)):.2f} pairs/s ({card})")
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                estimate(frames[:b + 1], K, keys, cfg)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            say(f"profile: {name} B={b} chunk ms "
+                f"{[round(t * 1e3, 2) for t in times]} -> median "
+                f"{b / float(np.median(times)):.2f} pairs/s ({card})")
+    # kernel name fragment (as the profiler shows it) -> table label
+    ours_by_name = {
+        "fast_harris_kernel": "fast_harris", "extract_brief_kernel":
+        "extract_brief", "match_hamming_kernel<false>": "match_hamming",
+        "match_hamming_kernel<true>": "row_top2_hamming",
+        "match_l2_kernel<false>": "match_l2",
+        "match_l2_kernel<true>": "row_top2_l2", "sq_norms": "l2 sq_norms",
+        "roots_kernel": "roots", "polish_kernel": "polish"}
     keys = np.stack([np.array([0, i], np.uint32) for i in range(8)])
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        estimate(frames[:9], K, keys, cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ka = prof.key_averages()
-    # device-side events only (kernels and copies): aten ops also report
-    # the device time of the kernels they launch, which would count twice
-    dev = [e for e in prof.events()
-           if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-    n_kern = len(dev)
-    ours = {}
-    for e in dev:
-        for k in ("fast_harris_kernel", "extract_brief_kernel",
-                  "match_hamming_kernel", "roots_kernel", "polish_kernel"):
-            if e.name.startswith(k):
-                ours[k] = ours.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
-    say(f"profile: B=8 wall {wall * 1e3:.1f} ms (profiled), device busy "
-        f"{busy:.2f} ms = {100 * busy / (wall * 1e3):.1f}%, {n_kern} device "
-        f"events; port kernels ms {ours} ({card})")
-    table = ka.table(sort_by="self_cuda_time_total", row_limit=30)
-    with open(OUT_DIR / "profile_main_path.txt", "w") as f:
-        f.write(table)
-        f.write("\n\n" + ka.table(sort_by="cpu_time_total", row_limit=30))
-    for line in table.splitlines()[:18]:
-        say(f"profile| {line}")
+    for name, cfg in cfgs.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            estimate(frames[:9], K, keys, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ka = prof.key_averages()
+        # device-side events only (kernels and copies): aten ops also report
+        # the device time of the kernels they launch, which would count twice
+        dev = [e for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+        ours = {}
+        for e in dev:
+            for frag, label in ours_by_name.items():
+                if frag in e.name:
+                    ours[label] = (ours.get(label, 0.0)
+                                   + e.time_range.elapsed_us() / 1e3)
+        say(f"profile: {name} B=8 wall {wall * 1e3:.1f} ms (profiled), "
+            f"device busy {busy:.2f} ms = {100 * busy / (wall * 1e3):.1f}%, "
+            f"{len(dev)} device events; port kernels ms "
+            f"{ {k: round(v, 4) for k, v in ours.items()} } ({card})")
+        table = ka.table(sort_by="self_cuda_time_total", row_limit=30)
+        tag = name.replace(" ", "_").lower()
+        with open(OUT_DIR / f"profile_{tag}.txt", "w") as f:
+            f.write(table)
+            f.write("\n\n" + ka.table(sort_by="cpu_time_total", row_limit=30))
+        for line in table.splitlines()[:14]:
+            say(f"profile[{name}]| {line}")
 
 
 def _exact_minimal_coeffs(np, torch, fp, b, dev):

@@ -1,14 +1,14 @@
 """rpe_tpu_torch: the PyTorch + CUDA port of rpe_tpu for NVIDIA Hopper.
 
-Slice 1 covers the sequence pose path at the parity configuration: ORB on
-the pyramid atlas -> Hamming cross-check -> 5-point RANSAC with DEGENSAC ->
-recoverPose, with its four kernels hand-written in CUDA for sm_90a
+It covers the sequence pose path: ORB on the pyramid atlas or SIFT ->
+Hamming or L2 cross-check, or the Lowe ratio test -> 5-point RANSAC with
+DEGENSAC -> recoverPose, with its kernels hand-written in CUDA for sm_90a
 (rpe_tpu_torch/csrc). Entry points: rpe_tpu_torch.pipeline.estimator.
 The package imports torch and numpy only, never jax or rpe_tpu.
 """
 
 from .config import EstimatorConfig, MatcherConfig, OrbConfig, \
-    RansacConfig, profile_config
+    RansacConfig, SiftConfig, profile_config
 
 __all__ = ["EstimatorConfig", "MatcherConfig", "OrbConfig", "RansacConfig",
-           "profile_config"]
+           "SiftConfig", "profile_config"]

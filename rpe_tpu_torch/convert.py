@@ -22,7 +22,8 @@ from .config import EstimatorConfig
 
 _DET_DTYPES = {"xy": torch.float32, "angle": torch.float32,
                "level": torch.int32, "score": torch.float32,
-               "bits": torch.uint8, "valid": torch.bool}
+               "bits": torch.uint8, "desc": torch.float32,
+               "valid": torch.bool}
 
 
 def config_from_dict(d: dict) -> EstimatorConfig:
@@ -50,7 +51,8 @@ def keys_from_numpy(k, device="cpu"):
 
 
 def detections_from_numpy(det: dict, device="cpu") -> dict:
-    """A reference detection dict (xy, angle, level, score, bits, valid) as
-    numpy -> the port's tensors, keeping any leading frame axis."""
+    """A reference detection dict as numpy -> the port's tensors, keeping
+    any leading frame axis: xy, angle, level, score, valid, and ORB's
+    uint8 "bits" or SIFT's float32 "desc"."""
     return {k: torch.as_tensor(np.asarray(det[k]), device=device).to(dt)
             for k, dt in _DET_DTYPES.items() if k in det}

@@ -29,6 +29,8 @@
 #include <stdint.h>
 #include <math.h>
 
+#include "error_string.cuh"
+
 #define PATCH 31
 #define PATCH_R 15
 #define NPIX (PATCH * PATCH)
@@ -132,8 +134,4 @@ extern "C" int extract_brief_launch(const float* atlas, const float* blur,
         atlas, blur, tbl_x0, rel_y, mu, mv, pat, bits, m10, m01, HA, WP, NB,
         CAP, band);
     return (int)cudaGetLastError();
-}
-
-extern "C" const char* rpe_cuda_error_string(int e) {
-    return cudaGetErrorString((cudaError_t)e);
 }

@@ -24,6 +24,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "error_string.cuh"
+
 #define TW 32
 #define TH 16
 #define HALO 4
@@ -158,8 +160,4 @@ extern "C" int fast_harris_launch(const float* img, float* rank, float* blur,
     fast_harris_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
         img, rank, blur, H, W, threshold, k_harris, g);
     return (int)cudaGetLastError();
-}
-
-extern "C" const char* rpe_cuda_error_string(int e) {
-    return cudaGetErrorString((cudaError_t)e);
 }

@@ -31,6 +31,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "error_string.cuh"
+
 #define NR 10            // MAX_ROOTS
 #define GRIDN 97
 #define BISECT 10
@@ -283,8 +285,4 @@ extern "C" void five_point_tables(int* out) {
     for (int m = 0; m < 20; ++m) out[40 + m] = flip_mono(m);
     for (int m = 0; m < 20; ++m)
         for (int k = 0; k < 3; ++k) out[60 + m * 3 + k] = mono_exp(m, k);
-}
-
-extern "C" const char* rpe_cuda_error_string(int e) {
-    return cudaGetErrorString((cudaError_t)e);
 }

@@ -1,9 +1,12 @@
-// K3: Hamming mutual nearest neighbours of {0,1} descriptors, batched over pairs.
+// K3: Hamming mutual nearest neighbours of {0,1} descriptors, batched over
+// pairs; and K6 in Hamming mode: per-row best, argbest and second-best
+// distance for the Lowe ratio test (template flag TOP2).
 //
 // Replaces rpe_tpu/ops/match_pallas.py `_mutual_nn` (`_match_kernel`), which
 // computed -2 a.b Gram tiles on the MXU in bf16 and carried the column argmin
-// across its sequential grid. Here descriptors are packed to 8 x uint32 on
-// load and distances are exact integers, popc(a ^ b) summed over 8 words.
+// across its sequential grid, and `_row_top2` (`_ratio_kernel`) with
+// norm="hamming". Here descriptors are packed to 8 x uint32 on load and
+// distances are exact integers, popc(a ^ b) summed over 8 words.
 //
 // Layout: one block per (64-row tile, pair); 256 threads as 16 x 16, each
 // thread owning rows ty + 16 r and columns tx + 16 c (r, c < 4) of every
@@ -20,6 +23,10 @@
 // outputs of the reference (`_mutual_nn`): best_d = _BIG and index 0 for an
 // invalid row or a row without valid columns, index 0 for an invalid column
 // or a column without valid rows.
+// Top-2 mode has no column pass: each thread keeps (best, argbest, second)
+// per row, second being the minimum over every other valid column (so it
+// equals best when best is tied at another index), merged over the row's
+// 16 threads; an invalid row gives (_BIG, 0, _BIG). Exact, like K3.
 //
 // Bound on this card: operations. Per pair N1 * N2 * 8 (xor, popc, add)
 // against 2 * N * 256 bytes of input; the bytes are re-read per row tile from
@@ -28,7 +35,11 @@
 // card's bound.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include "colkey.cuh"
+#include "error_string.cuh"
 
 #define RT 64
 #define CT 64
@@ -52,15 +63,12 @@ __device__ __forceinline__ uint32_t pack32(const uint8_t* p) {
     return w;
 }
 
-__global__ void init_colkey(unsigned long long* colkey, int n) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) colkey[i] = ~0ull;
-}
-
+template <bool TOP2>
 __global__ void __launch_bounds__(NTHREADS)
 match_hamming_kernel(const uint8_t* __restrict__ bits1, const uint8_t* __restrict__ bits2,
                      const bool* __restrict__ valid1, const bool* __restrict__ valid2,
                      float* __restrict__ best_d, int* __restrict__ nn12,
+                     float* __restrict__ second_d,
                      unsigned long long* __restrict__ colkey, int N1, int N2) {
     __shared__ uint32_t s_a[8][RT];
     __shared__ uint32_t s_b[8][CT];
@@ -94,9 +102,9 @@ match_hamming_kernel(const uint8_t* __restrict__ bits1, const uint8_t* __restric
 #pragma unroll
         for (int w = 0; w < 8; ++w) a[r][w] = s_a[w][ty + 16 * r];
     }
-    int rbest[4], rarg[4];
+    int rbest[4], rarg[4], rsec[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) { rbest[r] = 0x7fffffff; rarg[r] = 0; }
+    for (int r = 0; r < 4; ++r) { rbest[r] = INT_MAX; rarg[r] = 0; rsec[r] = INT_MAX; }
 
     for (int col0 = 0; col0 < N2; col0 += CT) {
         __syncthreads();
@@ -125,46 +133,59 @@ match_hamming_kernel(const uint8_t* __restrict__ bits1, const uint8_t* __restric
                 int d = 0;
 #pragma unroll
                 for (int w = 0; w < 8; ++w) d += __popc(a[r][w] ^ b[w]);
-                if (cv && d < rbest[r]) { rbest[r] = d; rarg[r] = col0 + cl; }
-                if (rv[r]) {
-                    unsigned long long key =
-                        ((unsigned long long)d << 32) | (unsigned)(row0 + ty + 16 * r);
-                    ckey = key < ckey ? key : ckey;
+                if (TOP2) {
+                    if (cv) {
+                        if (d < rbest[r]) {
+                            rsec[r] = rbest[r];
+                            rbest[r] = d;
+                            rarg[r] = col0 + cl;
+                        } else if (d < rsec[r]) {
+                            rsec[r] = d;
+                        }
+                    }
+                } else {
+                    if (cv && d < rbest[r]) { rbest[r] = d; rarg[r] = col0 + cl; }
+                    if (rv[r]) {
+                        unsigned long long key =
+                            ((unsigned long long)d << 32) | (unsigned)(row0 + ty + 16 * r);
+                        ckey = key < ckey ? key : ckey;
+                    }
                 }
             }
-            if (cv && ckey != ~0ull) atomicMin(&s_col[cl], ckey);
+            if (!TOP2 && cv && ckey != ~0ull) atomicMin(&s_col[cl], ckey);
         }
         __syncthreads();
-        if (tid < CT && s_col[tid] != ~0ull)
+        if (!TOP2 && tid < CT && s_col[tid] != ~0ull)
             atomicMin(&colkey[(size_t)pair * N2 + col0 + tid], s_col[tid]);
     }
 
     // row reduction across the 16 threads (tx) sharing each row
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-        int d = rbest[r], j = rarg[r];
+        int d = rbest[r], j = rarg[r], sd = rsec[r];
 #pragma unroll
         for (int off = 8; off > 0; off >>= 1) {
             int d2 = __shfl_xor_sync(0xffffffffu, d, off, 16);
             int j2 = __shfl_xor_sync(0xffffffffu, j, off, 16);
-            if (d2 < d || (d2 == d && j2 < j)) { d = d2; j = j2; }
+            int s2 = __shfl_xor_sync(0xffffffffu, sd, off, 16);
+            if (d2 < d || (d2 == d && j2 < j)) {
+                sd = min(s2, d);
+                d = d2;
+                j = j2;
+            } else {
+                sd = min(sd, d2);
+            }
         }
         int gi = row0 + ty + 16 * r;
         if (tx == 0 && gi < N1) {
-            bool ok = rv[r] && d != 0x7fffffff;
+            bool ok = rv[r] && d != INT_MAX;
             best_d[(size_t)pair * N1 + gi] = ok ? (float)d : BIG_F;
             nn12[(size_t)pair * N1 + gi] = ok ? j : 0;
+            if (TOP2)
+                second_d[(size_t)pair * N1 + gi] =
+                    (rv[r] && sd != INT_MAX) ? (float)sd : BIG_F;
         }
     }
-}
-
-__global__ void finalize_cols(const unsigned long long* __restrict__ colkey,
-                              const bool* __restrict__ valid2, int* __restrict__ nn21,
-                              int n) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    unsigned long long k = colkey[i];
-    nn21[i] = (valid2[i] && k != ~0ull) ? (int)(k & 0xffffffffull) : 0;
 }
 
 extern "C" int match_hamming_launch(const uint8_t* bits1, const uint8_t* bits2,
@@ -176,12 +197,21 @@ extern "C" int match_hamming_launch(const uint8_t* bits1, const uint8_t* bits2,
     int ncol = P * N2;
     init_colkey<<<(ncol + 255) / 256, 256, 0, s>>>(colkey, ncol);
     dim3 grid((N1 + RT - 1) / RT, P);
-    match_hamming_kernel<<<grid, NTHREADS, 0, s>>>(bits1, bits2, valid1, valid2,
-                                                   best_d, nn12, colkey, N1, N2);
+    match_hamming_kernel<false><<<grid, NTHREADS, 0, s>>>(bits1, bits2, valid1, valid2,
+                                                          best_d, nn12, nullptr, colkey,
+                                                          N1, N2);
     finalize_cols<<<(ncol + 255) / 256, 256, 0, s>>>(colkey, valid2, nn21, ncol);
     return (int)cudaGetLastError();
 }
 
-extern "C" const char* rpe_cuda_error_string(int e) {
-    return cudaGetErrorString((cudaError_t)e);
+extern "C" int row_top2_hamming_launch(const uint8_t* bits1, const uint8_t* bits2,
+                                       const bool* valid1, const bool* valid2, float* d1,
+                                       int* a1, float* d2, int P, int N1, int N2,
+                                       void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (P * N1 == 0) return (int)cudaGetLastError();
+    dim3 grid((N1 + RT - 1) / RT, P);
+    match_hamming_kernel<true><<<grid, NTHREADS, 0, s>>>(bits1, bits2, valid1, valid2, d1,
+                                                         a1, d2, nullptr, N1, N2);
+    return (int)cudaGetLastError();
 }

@@ -5,8 +5,8 @@ its kernel(s), compiled for Hopper (`sm_90a`) by `nvcc` into its own shared
 library and loaded with ctypes. All sources are compiled in parallel (one
 `nvcc` process per source, started together) on first use; the libraries go
 to rpe_tpu_torch/csrc/build/ (listed in .gitignore) under a name that hashes
-the source and the flags, so an unchanged source is not rebuilt within a
-checkout.
+the source, the shared headers (csrc/*.cuh) and the flags, so an unchanged
+source is not rebuilt within a checkout.
 
 No `--use_fast_math`: BRIEF rounding and the 5-point sign tests rely on IEEE
 `sqrtf`, division and `rintf`. The FAST/Harris and extraction kernels also
@@ -14,7 +14,9 @@ turn off FMA contraction (`-fmad=false`) so their arithmetic is the same
 sequence of roundings as their plain PyTorch versions.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made; the wrappers
-increment it right after a launch succeeds and nowhere else.
+increment it right after a launch succeeds and nowhere else. A source may
+hold more than one kernel (`KERNELS` maps each kernel to its source): K6's
+two modes count under their own names, beside K3 and K7.
 """
 
 from __future__ import annotations
@@ -31,18 +33,30 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
 
-# kernel name -> (source file, extra nvcc flags)
+# library name -> (source file, extra nvcc flags)
 SOURCES = {
     "fast_harris": ("fast_harris.cu", ["-fmad=false"]),
     "extract_brief": ("extract_brief.cu", ["-fmad=false"]),
     "match_hamming": ("match_hamming.cu", []),
     "five_point_roots": ("five_point_roots.cu", []),
+    "match_l2": ("match_l2.cu", []),
+}
+
+# kernel name (as counted in LAUNCHES) -> library it launches from
+KERNELS = {
+    "fast_harris": "fast_harris",              # K1
+    "extract_brief": "extract_brief",          # K2
+    "match_hamming": "match_hamming",          # K3
+    "five_point_roots": "five_point_roots",    # K4
+    "row_top2_hamming": "match_hamming",       # K6, Hamming mode
+    "row_top2_l2": "match_l2",                 # K6, L2 mode
+    "match_l2": "match_l2",                    # K7
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {name: 0 for name in SOURCES}
+LAUNCHES = {name: 0 for name in KERNELS}
 PTXAS_LOG: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -66,6 +80,8 @@ def nvcc_path() -> str:
 def _lib_path(name: str) -> Path:
     src, extra = SOURCES[name]
     h = hashlib.sha256((CSRC / src).read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS + extra).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
@@ -108,10 +124,10 @@ def lib(name: str) -> ctypes.CDLL:
 
 
 def check(name: str, rc: int) -> None:
-    """Raise on a non-zero cudaError_t returned by a launcher, else count
-    the launch."""
+    """Raise on a non-zero cudaError_t returned by kernel `name`'s
+    launcher, else count the launch."""
     if rc != 0:
-        err = lib(name).rpe_cuda_error_string
+        err = lib(KERNELS[name]).rpe_cuda_error_string
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "

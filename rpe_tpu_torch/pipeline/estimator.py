@@ -5,8 +5,10 @@ The functional core runs on static shapes with validity masks, and a
 degenerate pair surfaces as `valid=False` with an identity pose instead of
 an exception. Where the reference maps detection over frames and vmaps the
 pair stage, the port batches: all frames of a call go through detection
-together (one launch each of K1 and K2) and all pairs through matching and
-RANSAC together (one launch each of K3 and K4).
+together (ORB: one launch each of K1 and K2; SIFT is plain PyTorch) and
+all pairs through matching and RANSAC together (one launch of the matcher's
+kernel -- K3 Hamming or K7 L2 cross-check, K6 for the Lowe ratio test --
+and one of K4).
 
 Entry points take `device=None`, meaning the CUDA card (utils/device.py),
 and set full float32 matmul precision before any work. `PoseEstimator`
@@ -26,14 +28,16 @@ from ..convert import keys_from_numpy
 from ..geometry.epipolar import normalize_points
 from ..geometry.ransac import ransac_essential
 from ..geometry.recover_pose import recover_pose
-from ..ops.match import match_hamming
+from ..ops.match import match_hamming, match_l2, match_ratio
 from ..ops.orb import orb_detect_and_describe_atlas
+from ..ops.sift import sift_detect_and_describe
 from ..utils.device import full_precision, resolve_device
 from ..utils.sanitize import audit_finite, audit_rotation
 
 
 def detect_features(imgs, cfg: EstimatorConfig):
-    """ORB on a batch of frames (F, H, W) float32 -> dict of (F, K, ...)."""
+    """ORB or SIFT on a batch of frames (F, H, W) float32 -> dict of
+    (F, K, ...): ORB carries 256 {0,1} "bits", SIFT 128 float "desc"."""
     method = cfg.feature_method.upper()
     if method == "ORB":
         o = cfg.orb
@@ -42,23 +46,32 @@ def detect_features(imgs, cfg: EstimatorConfig):
             scale_factor=o.scale_factor, fast_threshold=o.fast_threshold,
             max_kpts=o.max_kpts, extract_cap=o.extract_cap, band=o.band)
     if method == "SIFT":
-        raise NotImplementedError(
-            "SIFT is not ported yet: ROADMAP.md Queue 1 item 11")
+        return sift_detect_and_describe(imgs, cfg.sift)
     raise ValueError(
         f"Unknown feature extraction method: {cfg.feature_method}")
 
 
 def match_features(det1, det2, cfg: EstimatorConfig):
-    """Hamming cross-check matching of paired detections (P, K, ...)."""
+    """Matching of paired detections (P, K, ...): cross-check (Hamming on
+    "bits", squared L2 on "desc") or, with cross_check=False, the Lowe
+    ratio test (on squared L2 distances the ratio is squared)."""
     m = cfg.matcher
-    if m.norm_type.lower() == "l2" or not m.cross_check:
-        raise NotImplementedError(
-            "L2 and Lowe-ratio matching are not ported yet: ROADMAP.md "
-            "Queue 1 item 11")
-    if m.norm_type.lower() != "hamming":
+    norm = m.norm_type.lower()
+    if norm not in ("hamming", "l2"):
         raise ValueError(f"Unknown norm type: {m.norm_type}")
-    return match_hamming(det1["bits"], det2["bits"], det1["valid"],
-                         det2["valid"], max_matches=m.max_matches)
+    key = "bits" if norm == "hamming" else "desc"
+    if key not in det1:
+        raise ValueError(
+            f"norm_type {m.norm_type!r} matches {key!r} descriptors, which "
+            f"these detections do not have ({sorted(det1)}): ORB pairs with "
+            f"hamming, SIFT with l2")
+    d1, d2, v1, v2 = det1[key], det2[key], det1["valid"], det2["valid"]
+    if m.cross_check:
+        match = match_hamming if norm == "hamming" else match_l2
+        return match(d1, d2, v1, v2, max_matches=m.max_matches)
+    ratio = m.ratio if norm == "hamming" else m.ratio ** 2
+    return match_ratio(d1, d2, v1, v2, ratio=ratio,
+                       max_matches=m.max_matches, norm=norm)
 
 
 def zero_motion_gate(pts1, pts2, mvalid, num_matches, zm_px: float):

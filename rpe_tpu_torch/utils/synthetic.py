@@ -85,6 +85,26 @@ def make_sequence(n_frames: int, h: int = 376, w: int = 1241, seed: int = 0,
     return np.stack(frames), K.astype(np.float32), (R, t / np.linalg.norm(t))
 
 
+def float_descriptors(seed: int, n1: int, n2: int, pairs: int = 1,
+                      dup: bool = False):
+    """SIFT-like descriptor sets for the L2 matchers: (pairs, n1, 128) and
+    (pairs, n2, 128) float32, nonnegative and of unit norm, the second set
+    holding noisy copies of the first, and (pairs, n1), (pairs, n2) bool
+    validity masks. dup=True adds exact duplicates on both sides (ties at
+    distance 0, which the lowest index must win)."""
+    g = np.random.default_rng(seed)
+    d1 = g.uniform(size=(pairs, n1, 128)).astype(np.float32) ** 3
+    d2 = d1[:, g.integers(0, n1, n2)] + 0.05 * g.uniform(size=(pairs, n2, 128))
+    if dup:
+        d1[:, n1 // 2:n1 // 2 + 8] = d1[:, :8]
+        d2[:, :16] = d1[:, :16]
+    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
+    d2 = (d2 / np.linalg.norm(d2, axis=-1, keepdims=True)).astype(np.float32)
+    v1 = g.uniform(size=(pairs, n1)) < 0.9
+    v2 = g.uniform(size=(pairs, n2)) < 0.9
+    return d1, d2, v1, v2
+
+
 def rotation_error_deg(R_a, R_b):
     """Geodesic angle in degrees between rotation matrices (..., 3, 3)."""
     R_a = np.asarray(R_a, dtype=np.float64)

@@ -1,4 +1,5 @@
-"""rpe_tpu_torch's CUDA kernels against their plain versions, on the card.
+"""rpe_tpu_torch's CUDA kernels against their plain versions, on the card,
+and each path launching its kernels and agreeing with its CPU run.
 
 Every test here needs a CUDA device and skips without one (the decision is
 made inside the `cuda` fixture, never at import). This file imports neither
@@ -7,30 +8,43 @@ jax nor rpe_tpu, so it also runs where only the port is installed:
     python -m pytest --noconftest tests/test_torch_gpu.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from rpe_tpu_torch import rng
 from rpe_tpu_torch.config import EstimatorConfig, MatcherConfig, OrbConfig, \
-    RansacConfig
+    RansacConfig, SiftConfig
 from rpe_tpu_torch.geometry import five_point as fp
 from rpe_tpu_torch.ops import kernels
 from rpe_tpu_torch.ops.atlas import band_tables
 from rpe_tpu_torch.ops.extract import extract_brief, extract_brief_plain
 from rpe_tpu_torch.ops.fast import fast_harris_rank_map, \
     fast_harris_rank_map_plain
-from rpe_tpu_torch.ops.match import mutual_nn_hamming, \
-    mutual_nn_hamming_plain
+from rpe_tpu_torch.ops.match import argmin_mismatches, \
+    l2sq_distance_matrix, mutual_nn_hamming, mutual_nn_hamming_plain, \
+    mutual_nn_l2, mutual_nn_l2_plain, near_tie_ok, row_top2, row_top2_plain
 from rpe_tpu_torch.ops.orb import atlas_keypoints
-from rpe_tpu_torch.pipeline.estimator import estimate_sequence_batched
-from rpe_tpu_torch.utils.synthetic import make_sequence, rotation_error_deg
+from rpe_tpu_torch.pipeline.estimator import PoseEstimator, estimate_pair, \
+    estimate_pairs_batched, estimate_sequence_batched
+from rpe_tpu_torch.utils.synthetic import float_descriptors, make_sequence, \
+    rotation_error_deg
 
 pytestmark = pytest.mark.gpu
 
 SMALL = EstimatorConfig(orb=OrbConfig(nfeatures=512, nlevels=4, max_kpts=512),
                         matcher=MatcherConfig(max_matches=256),
                         ransac=RansacConfig(num_hypotheses=128))
+SIFT_A = dataclasses.replace(
+    SMALL, feature_method="SIFT", sift=SiftConfig(max_kpts=1024),
+    matcher=MatcherConfig(norm_type="l2", max_matches=256))
+SIFT_B = dataclasses.replace(SIFT_A, matcher=dataclasses.replace(
+    SIFT_A.matcher, cross_check=False))
+ORB_RATIO = dataclasses.replace(SMALL, matcher=dataclasses.replace(
+    SMALL.matcher, cross_check=False))
+BIG = 3.0e38
 
 
 @pytest.fixture(scope="module")
@@ -93,6 +107,60 @@ def test_match_hamming_kernel_identical(cuda, n1, n2):
         assert torch.equal(k, p)
 
 
+@pytest.mark.parametrize("n1,n2", [(512, 512), (300, 457)])
+def test_row_top2_hamming_kernel_identical(cuda, n1, n2):
+    g = np.random.default_rng(n1 * n2)
+    b1 = torch.from_numpy(g.uniform(size=(2, n1, 256)) < 0.5).to(
+        torch.uint8).to(cuda)
+    b2 = torch.from_numpy(g.uniform(size=(2, n2, 256)) < 0.5).to(
+        torch.uint8).to(cuda)
+    b2[:, :n2 // 2, 16:] = b1[:, :n2 // 2, 16:]
+    b2[:, n2 // 2:n2 // 2 + 8] = b2[:, :8]             # best tied at 2 columns
+    v1 = torch.from_numpy(g.uniform(size=(2, n1)) < 0.9).to(cuda)
+    v2 = torch.from_numpy(g.uniform(size=(2, n2)) < 0.9).to(cuda)
+    v2[1] = False
+    for k, p in zip(row_top2(b1, b2, v1, v2, "hamming"),
+                    row_top2_plain(b1, b2, v1, v2, "hamming")):
+        assert torch.equal(k, p)
+
+
+def _float_descriptors(cuda, seed, n1, n2):
+    """Two pairs with distance-0 ties; the second pair's first half of
+    columns invalid."""
+    d1, d2, v1, v2 = float_descriptors(seed, n1, n2, pairs=2, dup=True)
+    v2[1, : n2 // 2] = False
+    return [torch.from_numpy(a).to(cuda) for a in (d1, d2, v1, v2)]
+
+
+@pytest.mark.parametrize("n1,n2", [(512, 512), (300, 457)])
+def test_match_l2_kernel_matches_plain(cuda, n1, n2):
+    d1, d2, v1, v2 = _float_descriptors(cuda, n1 + 7 * n2, n1, n2)
+    Dm = torch.where(v1[..., :, None] & v2[..., None, :],
+                     l2sq_distance_matrix(d1, d2), torch.tensor(BIG, device=cuda))
+    k = mutual_nn_l2(d1, d2, v1, v2)
+    p = mutual_nn_l2_plain(d1, d2, v1, v2)
+    assert k[1].dtype == torch.int32 and k[0].dtype == torch.float32
+    assert float((k[0] - p[0])[v1].abs().max()) <= 1e-5
+    assert (k[0][~v1] == BIG).all() and (k[1][~v1] == 0).all()
+    assert (k[2][~v2] == 0).all()
+    assert near_tie_ok(argmin_mismatches(Dm, k[1], p[1], v1, -1))
+    assert near_tie_ok(argmin_mismatches(Dm, k[2], p[2], v2, -2))
+
+
+@pytest.mark.parametrize("n1,n2", [(512, 512), (300, 457)])
+def test_row_top2_l2_kernel_matches_plain(cuda, n1, n2):
+    d1, d2, v1, v2 = _float_descriptors(cuda, n1 + 5 * n2, n1, n2)
+    Dm = torch.where(v1[..., :, None] & v2[..., None, :],
+                     l2sq_distance_matrix(d1, d2), torch.tensor(BIG, device=cuda))
+    k = row_top2(d1, d2, v1, v2, "l2")
+    p = row_top2_plain(d1, d2, v1, v2, "l2")
+    for a, b in ((k[0], p[0]), (k[2], p[2])):
+        assert float((a - b)[v1].abs().max()) <= 1e-5
+        assert (a[~v1] == BIG).all()
+    assert (k[1][~v1] == 0).all()
+    assert near_tie_ok(argmin_mismatches(Dm, k[1], p[1], v1, -1))
+
+
 def test_five_point_kernel_roots(cuda):
     g = np.random.default_rng(9)
     pts = torch.from_numpy(g.uniform(-0.5, 0.5, (256, 5, 2, 2)).astype(
@@ -112,14 +180,47 @@ def test_five_point_kernel_roots(cuda):
     assert not xk[~hk].any() and not yk[~hk].any()
 
 
-def test_main_path_launches_every_kernel_and_agrees_with_cpu(scene, cuda):
+ORB_KERNELS = {"fast_harris", "extract_brief", "five_point_roots"}
+
+
+@pytest.mark.parametrize("cfg,expect", [
+    (SMALL, ORB_KERNELS | {"match_hamming"}),
+    (SIFT_A, {"match_l2", "five_point_roots"}),
+    (SIFT_B, {"row_top2_l2", "five_point_roots"}),
+    (ORB_RATIO, ORB_KERNELS | {"row_top2_hamming"}),
+], ids=["orb", "sift_a", "sift_b", "orb_ratio"])
+def test_main_path_launches_every_kernel_and_agrees_with_cpu(
+        scene, cuda, cfg, expect):
+    """Each path launches exactly its kernels (no plain version, no CPU)
+    and agrees with its CPU run."""
     frames, K, R_gt, _ = scene
     keys = torch.stack([rng.PRNGKey(i) for i in range(2)])
     kernels.reset_launches()
-    out = estimate_sequence_batched(frames, K, keys, SMALL)
-    assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
-    cpu = estimate_sequence_batched(frames, K, keys, SMALL, device="cpu")
+    out = estimate_sequence_batched(frames, K, keys, cfg)
+    assert {k for k, n in kernels.LAUNCHES.items() if n > 0} == expect, \
+        kernels.LAUNCHES
+    assert out["R"].is_cuda and bool(torch.isfinite(out["R"]).all())
+    cpu = estimate_sequence_batched(frames, K, keys, cfg, device="cpu")
     assert torch.equal(out["valid"].cpu(), cpu["valid"])
     assert rotation_error_deg(out["R"].cpu().numpy(),
                               cpu["R"].numpy()).max() <= 0.5
     assert rotation_error_deg(out["R"].cpu().numpy(), R_gt[None]).max() < 2.0
+
+
+def test_sift_entry_points_run_on_the_card(scene, cuda):
+    """estimate_pairs_batched, estimate_pair and PoseEstimator(SIFT, L2)
+    take the card by default and launch K7 there."""
+    frames, K, R_gt, _ = scene
+    kernels.reset_launches()
+    out = estimate_pairs_batched(frames[:2], frames[1:], K,
+                                 torch.stack([rng.PRNGKey(i)
+                                              for i in range(2)]), SIFT_A)
+    assert out["R"].is_cuda and out["valid"].all()
+    one = estimate_pair(frames[0], frames[1], K, rng.PRNGKey(0), SIFT_A)
+    assert one["R"].shape == (3, 3) and one["R"].is_cuda
+    est = PoseEstimator(K, feature_method="SIFT", norm_type="L2",
+                        max_matches=256, config=SIFT_A)
+    R, t = est.estimate(frames[0], frames[1])
+    assert rotation_error_deg(R, R_gt) < 2.0 and t.shape == (3, 1)
+    assert kernels.LAUNCHES["match_l2"] == 3
+    assert kernels.LAUNCHES["match_hamming"] == 0

@@ -82,6 +82,22 @@ def test_detections_from_numpy_dtypes():
     assert t["level"].dtype == torch.int32 and t["xy"].shape == (2, 5, 2)
 
 
+def test_detections_from_numpy_carries_sift_float_descriptors():
+    g = np.random.default_rng(0)
+    det = {"xy": g.uniform(size=(2, 5, 2)).astype(np.float32),
+           "angle": g.uniform(-3, 3, size=(2, 5)).astype(np.float32),
+           "level": np.arange(10, dtype=np.int32).reshape(2, 5),
+           "score": np.ones((2, 5), np.float32),
+           "desc": g.uniform(size=(2, 5, 128)).astype(np.float32),
+           "valid": np.ones((2, 5), bool)}
+    t = convert.detections_from_numpy(det)
+    assert set(t) == set(det)
+    assert t["desc"].dtype == torch.float32 and t["desc"].shape == (2, 5, 128)
+    for k in ("desc", "angle", "level"):
+        np.testing.assert_array_equal(t[k].numpy(), det[k])
+    assert t["level"].dtype == torch.int32
+
+
 # ---- regenerated static tables -------------------------------------------------
 
 def test_orb_tables_equal():
