@@ -14,29 +14,37 @@ Phases (any failure exits non-zero before the final line):
      printing the ptxas resource lines;
   3. kernels: on a synthetic 1241x376 sequence (9 frames, made from a seed),
      each kernel against its plain version at the shapes one chunk of the
-     main paths gives it -- K1 on the 9 frames' (3200, 1280) atlases, K2 on
-     their real (100, 72) band tables, K3 and K6 (Hamming) on the 8 pairs'
-     4096 x 4096 ORB descriptors, K7 and K6 (L2) on the 8 pairs' 4096 x
-     4096 x 128 SIFT descriptors, K4 on 8 x 256 hypotheses' coefficients --
-     with its contract, its time (CUDA events, L2 flushed before each
-     launch), the plain version's time, a library call's time where one
-     computes the same function, and its bound on the H100;
+     main paths gives it -- K1 on the 9 frames' (3200, 1280) atlases, K2,
+     K12 (binned BRIEF) and the patch kernels K8, K9, K10 on their real
+     (100, 72) band tables, K3 and K6 (Hamming) on the 8 pairs' 4096 x 4096
+     ORB descriptors, K7 and K6 (L2) on the 8 pairs' 4096 x 4096 x 128 SIFT
+     descriptors, K4 on 8 x 256 hypotheses' coefficients and 2048 exact
+     minimal problems, K5 (K4's brackets alone) on the latter -- with its
+     contract, its time (CUDA events, L2 flushed before each launch), the
+     plain version's time, a library call's time where one computes the
+     same function, and its bound on the H100;
   4. paths: `estimate_sequence_batched` on the 9 frames (8 pairs) at
      EstimatorConfig() (ORB, Hamming cross-check: K1-K4), SIFT with L2
      cross-check (config A: K7, K4), SIFT with the L2 Lowe ratio test
      (config B: K6-L2, K4), and ORB with the Hamming ratio test (K1, K2,
-     K6-Hamming, K4). Every launch counter is reset just before each path
-     and read just after; each path must launch exactly its kernels. Each
-     path runs its first 3 frames again with device="cpu" (plain versions),
-     which must agree (equal `valid`, <= 0.5 deg rotation); rotation error
-     against the scene's ground truth; pairs/s.
+     K6-Hamming, K4), then the ORB path under four of the reference's
+     extraction gate settings, each taking K12, K10, K9 or K8 in K2's place
+     (set in the process for that path, restored after it). Every launch
+     counter is reset just before each path and read just after; each path
+     must launch exactly its kernels. Each path runs its first 3 frames
+     again with device="cpu" (plain versions), which must agree (equal
+     `valid`, <= 0.5 deg rotation); the K8-K10 routes' ORB bits must agree
+     with the default route's on the same keypoints (>= 0.999); rotation
+     error against the scene's ground truth; pairs/s.
 The line before the last is the kernel JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -79,6 +87,7 @@ def main() -> None:
     from rpe_tpu_torch.geometry.epipolar import normalize_points
     from rpe_tpu_torch.geometry.ransac import gather_points, \
         sample_minimal_indices
+    from rpe_tpu_torch.ops import extract as textract
     from rpe_tpu_torch.ops import kernels
     from rpe_tpu_torch.ops.atlas import band_tables
     from rpe_tpu_torch.ops.extract import extract_brief, extract_brief_plain
@@ -232,6 +241,81 @@ def main() -> None:
         replaces="rpe_tpu/ops/extract_pallas.py:931",
         max_abs_err=mom_err, ms=cuda_ms(lambda: extract_brief(*args)),
         plain_ms=cuda_ms(lambda: extract_brief_plain(*args), iters=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    # K8, K9, K10 (patch kernels) and K12 (binned BRIEF) on the same tables.
+    # Bytes: the pixels under live patches of both atlases read once, the
+    # tables, the outputs; operations: the moments' 4 per raw pixel, K12's
+    # 30 bin dots and 256 comparisons per live slot.
+    n_slots = nf * nb * cap
+    read_bytes = 2 * 4 * union_px + 2 * 4 * n_slots
+    patch_bytes = n_slots * PATCH * PATCH * 4
+    mom_ops = n_live * 4 * PATCH * PATCH
+    for kn, name, replaces, n_patches, ops in (
+            (8, "extract_patches", 1088, 2, 0),
+            (9, "extract_patches_moments", 129, 1, mom_ops),
+            (10, "extract_patches_t", 296, 1, mom_ops)):
+        kern = getattr(textract, name)
+        plain = getattr(textract, name + "_plain")
+        got, want = kern(*args), plain(*args)
+        same = [bool(torch.equal(x, y)) for x, y in zip(got, want)]
+        if name == "extract_patches":
+            ok, err, what = all(same), 0.0, f"raw and blur identical={same}"
+        else:
+            close = all(bool(torch.allclose(x, y, rtol=1e-4, atol=2.0))
+                        for x, y in zip(got[1:], want[1:]))
+            ok = same[0] and close
+            err = float(max((got[1] - want[1]).abs().max(),
+                            (got[2] - want[2]).abs().max()))
+            k2_same = bool(torch.equal(got[1], m10_k)
+                           and torch.equal(got[2], m01_k))
+            what = (f"blur{' (transposed)' if name.endswith('_t') else ''} "
+                    f"identical={same[0]}, moments allclose(rtol 1e-4, atol "
+                    f"2)={close} (max abs err {err:.3e}; equal to K2's: "
+                    f"{k2_same})")
+        parked = all(bool((t[~live] == 0).all()) for t in got)
+        check(f"K{kn} {name}", ok and parked,
+              f"{int(live.sum())} live of {n_slots} slots, {what}, parked "
+              f"slots zero={parked}")
+        out_bytes = n_patches * patch_bytes + (0 if n_patches == 2
+                                               else 2 * 4 * n_slots)
+        b_ms, b_by = bound(read_bytes + out_bytes, ops, FP32_OPS_PER_S)
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="rpe_tpu_torch/csrc/extract_patches.cu",
+            replaces=f"rpe_tpu/ops/extract_pallas.py:{replaces}",
+            max_abs_err=err, ms=cuda_ms(lambda: kern(*args)),
+            plain_ms=cuda_ms(lambda: plain(*args), iters=3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del got, want
+
+    bits_k, m10_k, m01_k = extract_brief(*args, binned=True)
+    bits_p, m10_p, m01_p = extract_brief_plain(*args, binned=True)
+    agree = float((bits_k == bits_p)[live].float().mean())
+    mom_ok = bool(torch.allclose(m10_k, m10_p, rtol=1e-4, atol=2.0)
+                  and torch.allclose(m01_k, m01_p, rtol=1e-4, atol=2.0))
+    mom_err = float(torch.maximum((m10_k - m10_p).abs().max(),
+                                  (m01_k - m01_p).abs().max()))
+    parked_zero = bool((bits_k[~live] == 0).all()
+                       and (m10_k[~live] == 0).all()
+                       and (m01_k[~live] == 0).all())
+    check("K12 extract_brief_binned", agree >= 0.999 and mom_ok
+          and parked_zero,
+          f"{int(live.sum())} live of {n_slots} slots, bit agreement "
+          f"{agree:.6f} (>= 0.999), moments allclose(rtol 1e-4, atol 2)="
+          f"{mom_ok} (max abs err {mom_err:.3e}), parked slots zero="
+          f"{parked_zero}")
+    b_ms, b_by = bound(read_bytes + n_slots * (256 + 8) + 30 * 512 * 4
+                       + 60 * 4, n_live * (4 * PATCH * PATCH + 30 * 3 + 256),
+                       FP32_OPS_PER_S)
+    rows["extract_brief_binned"] = dict(
+        name="extract_brief_binned", route="cuda",
+        source="rpe_tpu_torch/csrc/extract_brief.cu",
+        replaces="rpe_tpu/ops/extract_pallas.py:733",
+        max_abs_err=mom_err,
+        ms=cuda_ms(lambda: extract_brief(*args, binned=True)),
+        plain_ms=cuda_ms(lambda: extract_brief_plain(*args, binned=True),
+                         iters=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     # detections of all 9 frames feed K3, K6-Hamming and K4 at main-path
@@ -393,11 +477,11 @@ def main() -> None:
     # roots marked (scripts/k4_root_residuals.py), so there the kernel may
     # leave no more of them than its plain version does on the same input.
     # The plain version's converged roots reappear among the kernel's.
+    c9 = _exact_minimal_coeffs(np, torch, fp, 9, dev)
+    c2048 = _exact_minimal_coeffs(np, torch, fp, 2048, dev)
     for label, c in (
-            ("exact problems, B=9", _exact_minimal_coeffs(np, torch, fp, 9,
-                                                          dev)),
-            ("exact problems, B=2048", _exact_minimal_coeffs(np, torch, fp,
-                                                             2048, dev)),
+            ("exact problems, B=9", c9),
+            ("exact problems, B=2048", c2048),
             ("main path", coeffs)):
         kern, plain = fp.solve_roots_polished(c), fp.solve_roots_plain(c)
         good, n_roots, worst, zmax, reproduced, n_conv, dz = \
@@ -429,6 +513,49 @@ def main() -> None:
         max_abs_err=dz, ms=cuda_ms(lambda: fp.solve_roots_polished(coeffs)),
         plain_ms=cuda_ms(lambda: fp.solve_roots_plain(coeffs), iters=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    # K5 -- K4's brackets alone (contract: tests/test_pallas_kernels.py:
+    # 92-140) on the reference test's 9 exact problems and on the 2048. The
+    # kernel takes det M's sign from its pivot signs, the plain version
+    # from the det's value; at a borderline near-zero evaluation the two
+    # can differ (the reference says so of its own kernel,
+    # rpe_tpu/ops/five_point_pallas.py:20-24), and a sign change found by
+    # one side only moves that hypothesis's later slots. At B = 9 the
+    # reference test's contract holds against the plain version: has_root
+    # identical, every endpoint within one grid step, >= 90% within two
+    # bisection widths. At B = 2048 the plain version run in float64
+    # arbitrates: the kernel may be wrong against it on no more slots than
+    # the float32 plain version, and >= 90% of its endpoints lie within two
+    # bisection widths of it.
+    for label, c in (("exact problems, B=9", c9),
+                     ("exact problems, B=2048", c2048)):
+        r = _bracket_contract(np, torch, fp, c)
+        big = c.shape[0] > 9
+        ok = ((r["k_wrong"] <= r["p_wrong"] and r["k_near"] >= 0.9) if big
+              else (r["wrong"] == 0 and r["near"] >= 0.9)) and r["empty0"]
+        check(f"K5 root_brackets ({label})", ok,
+              f"{r['n_has']} brackets; against the plain version: has_root "
+              f"differs on {r['n_diff']} slots, {r['wrong']} slots wrong "
+              f"(has_root or an endpoint > one grid step {r['step']:.3e}), "
+              f"max endpoint diff {r['err']:.3e}, {r['near']:.4f} within "
+              f"two bisection widths"
+              + (f"; against float64: kernel wrong on {r['k_wrong']} slots, "
+                 f"plain on {r['p_wrong']} (kernel may not be wrong on "
+                 f"more), kernel within two widths {r['k_near']:.4f} (>= "
+                 f"0.9)" if big else " (none wrong, >= 0.9 within)")
+              + f"; empty slots 0={r['empty0']}")
+    b_ms, b_by = bound(2048 * (800 + fp.MAX_ROOTS * 9) + 97 * 4,
+                       2048 * 97 * 835 + r["n_has"] * 10 * 835,
+                       FP32_OPS_PER_S)
+    rows["root_brackets"] = dict(
+        name="root_brackets", route="cuda",
+        source="rpe_tpu_torch/csrc/five_point_roots.cu",
+        replaces="rpe_tpu/ops/five_point_pallas.py:385",
+        # no path launches K5: the reference reaches it from its tests only
+        launches=0, max_abs_err=r["err"],
+        ms=cuda_ms(lambda: fp.find_root_brackets(c2048)),
+        plain_ms=cuda_ms(lambda: fp.find_root_brackets_plain(c2048), iters=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del flush
 
     for r in rows.values():
@@ -442,60 +569,90 @@ def main() -> None:
     keys_np = np.stack([np.array([0, i], np.uint32) for i in range(8)])
     orb = ("fast_harris", "extract_brief")
     paths = [
-        ("ORB cross-check", cfg, orb + ("match_hamming", "five_point_roots")),
-        ("SIFT A (L2 cross-check)", cfg_a, ("match_l2", "five_point_roots")),
-        ("SIFT B (L2 ratio)", cfg_b, ("row_top2_l2", "five_point_roots")),
+        ("ORB cross-check", cfg, orb + ("match_hamming", "five_point_roots"),
+         {}),
+        ("SIFT A (L2 cross-check)", cfg_a, ("match_l2", "five_point_roots"),
+         {}),
+        ("SIFT B (L2 ratio)", cfg_b, ("row_top2_l2", "five_point_roots"), {}),
         ("ORB ratio", cfg_orb_ratio,
-         orb + ("row_top2_hamming", "five_point_roots")),
+         orb + ("row_top2_hamming", "five_point_roots"), {}),
     ]
+    # the ORB path under the reference's other extraction gates: each
+    # setting's kernel takes K2's place (ops/extract.py `extract_route`)
+    for route, gates in (
+            ("extract_brief_binned", {"RPE_EXTRACT_T_V7": "1"}),
+            ("extract_patches_t", {"RPE_EXTRACT_T_BRIEF": "0"}),
+            ("extract_patches_moments", {"RPE_EXTRACT_T": "0"}),
+            ("extract_patches", {"RPE_EXTRACT_T": "0",
+                                 "RPE_EXTRACT_MOMENTS": "0"})):
+        paths.append((f"ORB {' '.join(f'{k}={v}' for k, v in gates.items())}",
+                      cfg, ("fast_harris", route, "match_hamming",
+                            "five_point_roots"), gates))
     summary = {}
-    for label, pcfg, expect in paths:
-        estimate_sequence_batched(frames, K, keys_np, pcfg, device=dev)
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        out = estimate_sequence_batched(frames, K, keys_np, pcfg, device=dev)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        say(f"[{label}] launches: {launches}")
-        for k in expect:
-            rows[k].setdefault("launches", launches[k])
-        ran = {k for k, n in launches.items() if n > 0}
-        if ran != set(expect):
-            failures.append(f"{label}: launched {sorted(ran)}, want "
-                            f"{sorted(expect)}")
-        valid_cuda = out["valid"].cpu().numpy()
-        R_cuda = out["R"].cpu().numpy()
-        if not np.isfinite(R_cuda).all() or R_cuda.shape != (8, 3, 3):
-            failures.append(f"{label}: R not finite (8, 3, 3): "
-                            f"{R_cuda.shape}")
-        err_gt = rotation_error_deg(R_cuda, R_gt[None])
-        say(f"[{label}] valid {valid_cuda.tolist()}, matches "
-            f"{out['num_matches'].cpu().tolist()}, inliers "
-            f"{out['num_inliers'].cpu().tolist()}")
-        say(f"[{label}] rotation error vs ground truth (deg): "
-            f"{[round(float(e), 4) for e in err_gt]}")
-        say(f"[{label}] throughput: {8 / dt:.3f} pairs/s (8 pairs, "
-            f"1241x376, host clock + synchronize, {dt * 1e3:.1f} ms; {card})")
-        summary[label] = dict(pairs_per_s=8 / dt, launches=launches,
-                              valid=valid_cuda.tolist(),
-                              rot_err_gt_deg=[float(e) for e in err_gt])
-        t0 = time.perf_counter()
-        cpu = estimate_sequence_batched(frames[:3], K, keys_np[:2], pcfg,
-                                        device="cpu")
-        say(f"[{label}] CPU run of frames 0-2: "
-            f"{time.perf_counter() - t0:.1f} s")
-        valid_cpu = cpu["valid"].numpy()
-        d_rot = rotation_error_deg(R_cuda[:2], cpu["R"].numpy())
-        check(f"[{label}] CUDA vs CPU",
-              bool((valid_cpu == valid_cuda[:2]).all())
-              and bool((d_rot <= 0.5).all()),
-              f"valid cuda {valid_cuda[:2].tolist()} cpu "
-              f"{valid_cpu.tolist()}, rotation difference (deg) "
-              f"{[float(x) for x in d_rot]} (<= 0.5), matches cuda "
-              f"{out['num_matches'][:2].cpu().tolist()} cpu "
-              f"{cpu['num_matches'].tolist()}")
+    for label, pcfg, expect, gates in paths:
+        with _gates(gates):
+            estimate_sequence_batched(frames, K, keys_np, pcfg, device=dev)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = estimate_sequence_batched(frames, K, keys_np, pcfg,
+                                            device=dev)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            say(f"[{label}] launches: {launches}")
+            for k in expect:
+                rows[k].setdefault("launches", launches[k])
+            ran = {k for k, n in launches.items() if n > 0}
+            if ran != set(expect):
+                failures.append(f"{label}: launched {sorted(ran)}, want "
+                                f"{sorted(expect)}")
+            valid_cuda = out["valid"].cpu().numpy()
+            R_cuda = out["R"].cpu().numpy()
+            if not np.isfinite(R_cuda).all() or R_cuda.shape != (8, 3, 3):
+                failures.append(f"{label}: R not finite (8, 3, 3): "
+                                f"{R_cuda.shape}")
+            err_gt = rotation_error_deg(R_cuda, R_gt[None])
+            say(f"[{label}] valid {valid_cuda.tolist()}, matches "
+                f"{out['num_matches'].cpu().tolist()}, inliers "
+                f"{out['num_inliers'].cpu().tolist()}")
+            say(f"[{label}] rotation error vs ground truth (deg): "
+                f"{[round(float(e), 4) for e in err_gt]}")
+            say(f"[{label}] throughput: {8 / dt:.3f} pairs/s (8 pairs, "
+                f"1241x376, host clock + synchronize, {dt * 1e3:.1f} ms; "
+                f"{card})")
+            summary[label] = dict(pairs_per_s=8 / dt, launches=launches,
+                                  valid=valid_cuda.tolist(),
+                                  rot_err_gt_deg=[float(e) for e in err_gt])
+            t0 = time.perf_counter()
+            cpu = estimate_sequence_batched(frames[:3], K, keys_np[:2], pcfg,
+                                            device="cpu")
+            say(f"[{label}] CPU run of frames 0-2: "
+                f"{time.perf_counter() - t0:.1f} s")
+            valid_cpu = cpu["valid"].numpy()
+            d_rot = rotation_error_deg(R_cuda[:2], cpu["R"].numpy())
+            check(f"[{label}] CUDA vs CPU",
+                  bool((valid_cpu == valid_cuda[:2]).all())
+                  and bool((d_rot <= 0.5).all()),
+                  f"valid cuda {valid_cuda[:2].tolist()} cpu "
+                  f"{valid_cpu.tolist()}, rotation difference (deg) "
+                  f"{[float(x) for x in d_rot]} (<= 0.5), matches cuda "
+                  f"{out['num_matches'][:2].cpu().tolist()} cpu "
+                  f"{cpu['num_matches'].tolist()}")
+            if gates and expect[1] != "extract_brief_binned":
+                # K8-K10's routes describe with K2's function: their bits
+                # agree with the default route's on the same keypoints
+                with torch.no_grad():
+                    rd = detect_features(imgs, pcfg)
+                same_kp = bool(torch.equal(rd["valid"], dets["valid"])
+                               and torch.equal(rd["xy"], dets["xy"]))
+                v = dets["valid"]
+                agree = float((rd["bits"] == dets["bits"])[v].float().mean())
+                check(f"[{label}] bits vs the default route",
+                      same_kp and agree >= 0.999,
+                      f"same keypoints={same_kp}, bit agreement {agree:.6f} "
+                      f"(>= 0.999) over {int(v.sum())} keypoints")
+                del rd
 
     if "--profile" in sys.argv:
         _profile_main_path(torch, np, estimate_sequence_batched,
@@ -512,6 +669,22 @@ def main() -> None:
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+@contextlib.contextmanager
+def _gates(gates):
+    """Set the environment variables `gates` for the block, then restore
+    what was there."""
+    old = {k: os.environ.get(k) for k in gates}
+    os.environ.update(gates)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def patch_union_px(torch, tbl_x0, rel_y, band, ha, wp, patch):
@@ -580,6 +753,39 @@ def _five_point_contract(np, fp, coeffs, kern, plain):
             reproduced += 1
             dz = max(dz, float(np.abs(zk[b][near] - zp[b, r]).min()))
     return good, n_roots, worst, zmax, reproduced, n_conv, dz
+
+
+def _bracket_contract(np, torch, fp, c):
+    """K5 on coefficients c (B, 10, 20) against its plain version, and
+    both against the plain version in float64 (the arbiter). A slot is
+    wrong against a reference where has_root differs, or where both have a
+    root and an endpoint lies more than one grid step away (another grid
+    interval); `near` is the share of slots rooted on both sides whose
+    endpoints lie within two final bisection widths."""
+    step = float(np.pi / (fp.GRID - 1))
+    width = step / (1 << fp.BISECT_ITERS)
+    kern = fp.find_root_brackets(c)
+    plain = fp.find_root_brackets_plain(c)
+    f64 = [x.float() if x.is_floating_point() else x
+           for x in fp.find_root_brackets_plain(c.double())]
+
+    def compare(x, ref):
+        both = x[2] & ref[2]
+        dlo, dhi = (x[0] - ref[0]).abs(), (x[1] - ref[1]).abs()
+        far = both & ((dlo > step) | (dhi > step))
+        near = both & (dlo <= 2 * width) & (dhi <= 2 * width)
+        return (int((x[2] != ref[2]).sum() + far.sum()),
+                float(near.sum()) / max(int(both.sum()), 1),
+                float(torch.maximum(dlo[both].max(), dhi[both].max())))
+
+    wrong, near, err = compare(kern, plain)
+    return dict(n_has=int(kern[2].sum()),
+                n_diff=int((kern[2] != plain[2]).sum()), wrong=wrong,
+                near=near, err=err, step=step,
+                k_wrong=compare(kern, f64)[0], p_wrong=compare(plain, f64)[0],
+                k_near=compare(kern, f64)[1],
+                empty0=bool((kern[0][~kern[2]] == 0).all()
+                            and (kern[1][~kern[2]] == 0).all()))
 
 
 def _profile_main_path(torch, np, estimate, cfgs, card):

@@ -1,7 +1,9 @@
-// K2: banded patch extraction + IC moments + steered BRIEF, one slot per block.
+// K2: banded patch extraction + IC moments + steered BRIEF, one slot per block,
+// and K12, the same with the ORB paper's 30-bin steering (template BINNED).
 //
 // Replaces rpe_tpu/ops/extract_pallas.py `extract_windows_t_brief(quad=True)`
-// (`_extract_t_brief_kernel_quad` with `_brief_bits_from_patch`). The TPU
+// (`_extract_t_brief_kernel_quad` with `_brief_bits_from_patch`) and, binned,
+// `extract_windows_t_brief(binned=True)` (`_extract_t_brief_kernel_v7`). The TPU
 // kernel selected patch rows with one-hot MXU products because the TPU has
 // no fast gather; a GPU thread reads any address, so here each block loads
 // its slot's 31x31 raw and blurred patches straight from the two atlases into
@@ -24,6 +26,15 @@
 // pattern is half-to-even (rintf) as jnp.round/torch.round; built with
 // -fmad=false so x cos - y sin rounds like the plain version's separate
 // products.
+//
+// K12 (BINNED): the v7 kernel batched 4 slots' samples through static one-hot
+// tables so the TPU's matrix unit could do the sampling. Here each thread
+// picks the bin itself -- the first b maximising m10 cos_b + m01 sin_b, each
+// product rounded and then summed (no FMA), as ops/orb.py `angle_bins` -- and
+// reads its pair's two sample indices from the static (30, 512) table
+// (row-major patch index iy * 31 + ix, column n = j * 256 + pair), which the
+// wrapper copies to the card once. Zero moments give bin 0; parked slots
+// give zero bits. Bound as K2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,12 +46,15 @@
 #define PATCH_R 15
 #define NPIX (PATCH * PATCH)
 #define NTHREADS 256
+#define NBINS 30
 
+template <bool BINNED>
 __global__ void __launch_bounds__(NTHREADS)
 extract_brief_kernel(const float* __restrict__ atlas, const float* __restrict__ blur,
                      const int* __restrict__ tbl_x0, const int* __restrict__ rel_y,
                      const float* __restrict__ mu, const float* __restrict__ mv,
-                     const float* __restrict__ pat, uint8_t* __restrict__ bits,
+                     const float* __restrict__ pat, const int* __restrict__ bin_idx,
+                     const float* __restrict__ bin_cs, uint8_t* __restrict__ bits,
                      float* __restrict__ m10_out, float* __restrict__ m01_out,
                      int HA, int WP, int NB, int CAP, int band) {
     __shared__ float s_raw[NPIX];
@@ -103,35 +117,56 @@ extract_brief_kernel(const float* __restrict__ atlas, const float* __restrict__ 
     }
     __syncthreads();
     const float m10 = s_m[0], m01 = s_m[1];
-    const float r = sqrtf(m10 * m10 + m01 * m01);
-    const float ca = r > 0.f ? m10 / r : 1.f;
-    const float sa = r > 0.f ? m01 / r : 0.f;
-
-    // pair tid: points (px0, py0) and (px1, py1)
     float v[2];
+    if (BINNED) {
+        int bin = 0;
+        float best = m10 * bin_cs[0] + m01 * bin_cs[NBINS];
+        for (int b = 1; b < NBINS; ++b) {
+            float d = m10 * bin_cs[b] + m01 * bin_cs[NBINS + b];
+            if (d > best) {
+                best = d;
+                bin = b;
+            }
+        }
+        v[0] = s_blur[bin_idx[bin * 512 + tid]];
+        v[1] = s_blur[bin_idx[bin * 512 + 256 + tid]];
+    } else {
+        const float r = sqrtf(m10 * m10 + m01 * m01);
+        const float ca = r > 0.f ? m10 / r : 1.f;
+        const float sa = r > 0.f ? m01 / r : 0.f;
+        // pair tid: points (px0, py0) and (px1, py1)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-        float px = pat[tid * 4 + 2 * j];
-        float py = pat[tid * 4 + 2 * j + 1];
-        float rx = px * ca - py * sa;
-        float ryf = px * sa + py * ca;
-        int ix = min(max((int)rintf(rx) + PATCH_R, 0), PATCH - 1);
-        int iy = min(max((int)rintf(ryf) + PATCH_R, 0), PATCH - 1);
-        v[j] = s_blur[iy * PATCH + ix];
+        for (int j = 0; j < 2; ++j) {
+            float px = pat[tid * 4 + 2 * j];
+            float py = pat[tid * 4 + 2 * j + 1];
+            float rx = px * ca - py * sa;
+            float ryf = px * sa + py * ca;
+            int ix = min(max((int)rintf(rx) + PATCH_R, 0), PATCH - 1);
+            int iy = min(max((int)rintf(ryf) + PATCH_R, 0), PATCH - 1);
+            v[j] = s_blur[iy * PATCH + ix];
+        }
     }
     bits[so * 256 + tid] = v[0] < v[1] ? 1 : 0;
 }
 
-extern "C" int extract_brief_launch(const float* atlas, const float* blur,
+// binned: 0 launches K2, 1 launches K12 (bin_idx and bin_cs are read only then)
+extern "C" int extract_brief_launch(int binned, const float* atlas, const float* blur,
                                     const int* tbl_x0, const int* rel_y,
                                     const float* mu, const float* mv,
-                                    const float* pat, uint8_t* bits,
+                                    const float* pat, const int* bin_idx,
+                                    const float* bin_cs, uint8_t* bits,
                                     float* m10, float* m01, int F, int HA,
                                     int WP, int NB, int CAP, int band,
                                     void* stream) {
     dim3 grid(NB * CAP, F);
-    extract_brief_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-        atlas, blur, tbl_x0, rel_y, mu, mv, pat, bits, m10, m01, HA, WP, NB,
-        CAP, band);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (binned)
+        extract_brief_kernel<true><<<grid, NTHREADS, 0, s>>>(
+            atlas, blur, tbl_x0, rel_y, mu, mv, pat, bin_idx, bin_cs, bits, m10,
+            m01, HA, WP, NB, CAP, band);
+    else
+        extract_brief_kernel<false><<<grid, NTHREADS, 0, s>>>(
+            atlas, blur, tbl_x0, rel_y, mu, mv, pat, bin_idx, bin_cs, bits, m10,
+            m01, HA, WP, NB, CAP, band);
     return (int)cudaGetLastError();
 }

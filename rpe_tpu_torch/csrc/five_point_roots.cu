@@ -17,6 +17,8 @@
 //     of M from back-substitution on its unpivoted LU (v9 = 1), clips x, y
 //     to +-1e6, and runs 4 Gauss-Newton steps on the 10 cubic constraints.
 // Both kernels come from one launcher: one launch of K4 per call.
+// K5, rpe_tpu/ops/five_point_pallas.py `find_root_brackets` (its
+// `_roots_kernel` alone), is roots_kernel from a launcher of its own.
 //
 // Bound on this card: operations. ~1.4e5 float operations per hypothesis
 // (97 + 100 determinant evaluations of ~700 operations) and ~2e4 per root
@@ -276,6 +278,15 @@ extern "C" int five_point_roots_launch(const float* coeffs, const float* tgrid,
     int n = B * NR;
     polish_kernel<<<(n + 127) / 128, 128, 0, s>>>(coeffs, brackets, x, y, rv,
                                                   flip, has, B);
+    return (int)cudaGetLastError();
+}
+
+// K5: roots_kernel alone (brackets (B, 3, NR): t_lo, t_hi, has as 0/1)
+extern "C" int five_point_brackets_launch(const float* coeffs, const float* tgrid,
+                                          float* brackets, int B, void* stream) {
+    if (B <= 0) return 0;
+    roots_kernel<<<(B + HYP_PER_BLOCK - 1) / HYP_PER_BLOCK, HYP_PER_BLOCK, 0,
+                   (cudaStream_t)stream>>>(coeffs, tgrid, brackets, B);
     return (int)cudaGetLastError();
 }
 

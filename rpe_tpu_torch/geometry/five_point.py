@@ -1,6 +1,7 @@
-"""Batched 5-point essential-matrix minimal solver and the root kernel K4
-(port of rpe_tpu/geometry/five_point.py and the function of
-rpe_tpu/ops/five_point_pallas.py `solve_roots_polished`).
+"""Batched 5-point essential-matrix minimal solver and the root kernels K4
+and K5 (port of rpe_tpu/geometry/five_point.py and the functions of
+rpe_tpu/ops/five_point_pallas.py `solve_roots_polished` and
+`find_root_brackets`).
 
 Hidden-variable resultant (Li & Hartley, ICPR 2006):
   1. nullspace of the 5x9 epipolar system by unrolled Householder QR ->
@@ -116,7 +117,8 @@ def _kernel_tables():
 
 
 def _t(a, like):
-    return torch.from_numpy(a).to(like.device)
+    """A static float table as a tensor of `like`'s device and dtype."""
+    return torch.from_numpy(a).to(like.device, like.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -248,17 +250,12 @@ def _gn_refine(coeffs, x, y, z, iters: int = 4):
 # K4: root isolation + chart-aware extraction + polish
 # ---------------------------------------------------------------------------
 
-def solve_roots_plain(coeffs):
-    """Plain version of K4 (the reference's XLA branch,
-    rpe_tpu/geometry/five_point.py:345-414).
-
-    coeffs (B, 10, 20) row-normalized. Returns (x, y, r_var, flip,
-    has_root), each (B, MAX_ROOTS): the polished solution per real root in
-    the chart `flip` selects (E = x X + y Y + r Z + W where False,
-    x X + y Y + Z + r W where True). Slots without a root hold unpolished
-    values and has_root False.
-    """
-    from .eig import smallest_eigvec_sym
+def find_root_brackets_plain(coeffs):
+    """Plain version of K5 (the bracket half of the reference's XLA branch,
+    rpe_tpu/geometry/five_point.py:345-370): det M(z) on the 97-point tan
+    grid, its first MAX_ROOTS sign changes in grid order, 10 bisection
+    steps each. coeffs (B, 10, 20) -> (t_lo, t_hi, has_root), each (B,
+    MAX_ROOTS), z = tan(t); slots without a root are 0, 0, False."""
     from ..ops.orb import top_k_stable
 
     batch = coeffs.shape[:-2]
@@ -284,6 +281,45 @@ def solve_roots_plain(coeffs):
         t_lo, d_lo, t_hi = (torch.where(same, mid, t_lo),
                             torch.where(same, dm, d_lo),
                             torch.where(same, t_hi, mid))
+    return (torch.where(has_root, t_lo, 0.0), torch.where(has_root, t_hi, 0.0),
+            has_root)
+
+
+def find_root_brackets(coeffs):
+    """K5: `find_root_brackets_plain`'s function on (B, 10, 20) float32
+    coefficients, from K4's bracket kernel alone (det M's sign from the
+    pivot signs of its LU, as K4). CUDA tensors launch
+    csrc/five_point_roots.cu; CPU tensors take the plain version."""
+    if coeffs.device.type == "cpu":
+        return find_root_brackets_plain(coeffs)
+    from ..ops import kernels
+
+    lib, tgrid = _roots_kernel_inputs("find_root_brackets", coeffs)
+    b = coeffs.shape[0]
+    brackets = torch.empty((b, 3, MAX_ROOTS), dtype=torch.float32,
+                           device=coeffs.device)
+    fn = lib.five_point_brackets_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(*(kernels.ptr(t) for t in (coeffs, tgrid, brackets)), b,
+            kernels.stream_ptr(coeffs))
+    kernels.check("root_brackets", rc)
+    return brackets[:, 0], brackets[:, 1], brackets[:, 2] > 0.5
+
+
+def solve_roots_plain(coeffs):
+    """Plain version of K4 (the reference's XLA branch,
+    rpe_tpu/geometry/five_point.py:345-414).
+
+    coeffs (B, 10, 20) row-normalized. Returns (x, y, r_var, flip,
+    has_root), each (B, MAX_ROOTS): the polished solution per real root in
+    the chart `flip` selects (E = x X + y Y + r Z + W where False,
+    x X + y Y + Z + r W where True). Slots without a root hold unpolished
+    values and has_root False.
+    """
+    from .eig import smallest_eigvec_sym
+
+    t_lo, t_hi, has_root = find_root_brackets_plain(coeffs)
     z_root = torch.tan(0.5 * (t_lo + t_hi))
 
     P = _t(_flip_table(), coeffs)
@@ -317,17 +353,11 @@ def solve_roots_polished(coeffs):
     """
     if coeffs.device.type == "cpu":
         return solve_roots_plain(coeffs)
-    if coeffs.dim() != 3 or coeffs.shape[1:] != (10, 20) \
-            or coeffs.dtype != torch.float32:
-        raise ValueError("solve_roots_polished: want (B, 10, 20) float32")
     from ..ops import kernels
 
-    kernels.require_cuda("solve_roots_polished", coeffs=coeffs)
-    lib = kernels.lib("five_point_roots")
-    _check_kernel_tables(lib)
+    lib, tgrid = _roots_kernel_inputs("solve_roots_polished", coeffs)
     b = coeffs.shape[0]
     dev = coeffs.device
-    tgrid = _t(_tan_grid(), coeffs)
     outs = [torch.empty((b, MAX_ROOTS), dtype=torch.float32, device=dev)
             for _ in range(3)]
     flip = torch.empty((b, MAX_ROOTS), dtype=torch.bool, device=dev)
@@ -342,6 +372,21 @@ def solve_roots_polished(coeffs):
             b, kernels.stream_ptr(coeffs))
     kernels.check("five_point_roots", rc)
     return outs[0], outs[1], outs[2], flip, has
+
+
+def _roots_kernel_inputs(name, coeffs):
+    """K4's and K5's preconditions: coeffs (B, 10, 20) float32, contiguous
+    on a CUDA device. Returns the loaded library, its tables checked, and
+    the tan grid on the card."""
+    if coeffs.dim() != 3 or coeffs.shape[1:] != (10, 20) \
+            or coeffs.dtype != torch.float32:
+        raise ValueError(f"{name}: want (B, 10, 20) float32")
+    from ..ops import kernels
+
+    kernels.require_cuda(name, coeffs=coeffs)
+    lib = kernels.lib("five_point_roots")
+    _check_kernel_tables(lib)
+    return lib, _t(_tan_grid(), coeffs)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,11 +1,25 @@
-"""K2: slot extraction + IC moments + steered BRIEF bits
-(the function of rpe_tpu/ops/extract_pallas.py
-`extract_windows_t_brief(quad=True)`).
+"""Banded slot extraction: the ORB extraction routes and their kernels.
 
 Inputs are the atlas, its Gaussian blur and the (NB, CAP) slot tables of
 ops/atlas.py `band_tables`, with a leading frame axis. Outputs live in slot
-space: bits (F, NB*CAP, 256) uint8, m10 and m01 (F, NB*CAP) float32; parked
-slots (rel_y < 0) give zeros.
+space (S = NB*CAP slots per frame); parked slots (rel_y < 0) give zeros.
+
+  K2  `extract_brief`                  bits (F, S, 256) uint8, m10, m01 (F, S)
+      (rpe_tpu/ops/extract_pallas.py `extract_windows_t_brief`, continuous
+      steering);
+  K12 `extract_brief(binned=True)`     the same with the ORB paper's 30-bin
+      steering (`extract_windows_t_brief(binned=True)`);
+  K8  `extract_patches`                raw and blurred patches (F, S, 31, 31)
+      (`extract_windows`);
+  K9  `extract_patches_moments`        blurred patches, m10, m01
+      (`extract_windows_moments`);
+  K10 `extract_patches_t`              blurred patches transposed, m10, m01
+      (`extract_windows_t`).
+
+The reference pads each patch to 32x32 (a TPU lane layout); here patches
+are 31x31. `extract_route` picks the route from the reference's kernel
+gates. Each wrapper launches its CUDA kernel on CUDA tensors and takes its
+plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -17,16 +31,53 @@ import numpy as np
 import torch
 
 from . import kernels
-from .orb import PATCH, _ic_angle_masks, brief_pattern, ic_moments, \
-    steered_brief
+from .fast import kernel_gate
+from .orb import PATCH, _ic_angle_masks, brief_bin_tables, \
+    brief_bin_vectors, brief_pattern, ic_moments, steered_brief, \
+    steered_brief_t_binned
+
+
+def extract_route() -> str:
+    """The kernel (launch counter name) that computes what the reference's
+    extraction computes on the TPU under the current kernel gates
+    (rpe_tpu/ops/atlas.py:267-363, read at call time):
+
+      RPE_EXTRACT_T and RPE_EXTRACT_T_BRIEF on (the default): K2, whose
+        function the reference's v3, v4, sparse, quad and v8 bodies all
+        compute; RPE_EXTRACT_T_V7 on (and RPE_EXTRACT_T_V8 off): K12;
+      RPE_EXTRACT_T on, RPE_EXTRACT_T_BRIEF off: K10;
+      RPE_EXTRACT_T off, RPE_PALLAS_EXTRACT and RPE_EXTRACT_MOMENTS on: K9;
+      otherwise K8 (with RPE_PALLAS_EXTRACT off too, the reference's XLA
+        one-hot path, which computes K8's function).
+    """
+    if kernel_gate("RPE_EXTRACT_T"):
+        if not kernel_gate("RPE_EXTRACT_T_BRIEF"):
+            return "extract_patches_t"
+        if kernel_gate("RPE_EXTRACT_T_V7") and not kernel_gate(
+                "RPE_EXTRACT_T_V8"):
+            return "extract_brief_binned"
+        return "extract_brief"
+    if kernel_gate("RPE_PALLAS_EXTRACT") and kernel_gate(
+            "RPE_EXTRACT_MOMENTS"):
+        return "extract_patches_moments"
+    return "extract_patches"
 
 
 @functools.lru_cache(maxsize=None)
-def _tables_np():
+def _device_tables(dev: torch.device):
+    """The kernels' static tables on `dev`, copied there once: moment
+    weights mu, mv (961,) float32 (the IC mask times u, v), the BRIEF
+    pattern (1024,) float32 ((x0, y0, x1, y1) per pair), K12's sample
+    indices (30, 512) int32 (iy * 31 + ix into a row-major patch, j-major
+    columns as in `brief_bin_tables`) and its bin (cos, sin) (60,)."""
     mask, us, vs = _ic_angle_masks()
-    pat = brief_pattern().astype(np.float32).reshape(256, 4)
-    return ((mask * us).reshape(-1).astype(np.float32),
-            (mask * vs).reshape(-1).astype(np.float32), pat.reshape(-1))
+    ix, iy = brief_bin_tables()
+    arrays = ((mask * us).reshape(-1), (mask * vs).reshape(-1),
+              brief_pattern().astype(np.float32).reshape(-1),
+              (iy * PATCH + ix).astype(np.int32),
+              np.concatenate(brief_bin_vectors()))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in arrays)
 
 
 def gather_slot_patches(img, tbl_x0, rel_y, band: int):
@@ -51,50 +102,150 @@ def gather_slot_patches(img, tbl_x0, rel_y, band: int):
                        torch.zeros((), dtype=out.dtype, device=dev))
 
 
-def extract_brief_plain(atlas, blurred, tbl_x0, rel_y, band: int):
-    """Plain version of K2: gather both patches, IC moments, and BRIEF at
-    the angle atan2(m01, m10) through cos/sin, as the reference computes it
-    off the TPU (rpe_tpu/ops/atlas.py:365-449, ops/orb.py:436-446)."""
-    raw = gather_slot_patches(atlas, tbl_x0, rel_y, band)
-    blur = gather_slot_patches(blurred, tbl_x0, rel_y, band)
-    f, s = raw.shape[:2]
-    m10, m01 = ic_moments(raw.reshape(f * s, PATCH, PATCH))
-    bits = steered_brief(blur.reshape(f * s, PATCH, PATCH),
-                         torch.atan2(m01, m10))
-    live = (rel_y >= 0).reshape(f, s)
-    bits = torch.where(live[..., None], bits.reshape(f, s, 256),
-                       torch.zeros((), dtype=bits.dtype, device=bits.device))
-    return bits, m10.reshape(f, s), m01.reshape(f, s)
+# ---- plain versions ------------------------------------------------------
+
+def extract_patches_plain(atlas, blurred, tbl_x0, rel_y, band: int):
+    """Plain version of K8: (raw, blur) patches (F, S, PATCH, PATCH)."""
+    return (gather_slot_patches(atlas, tbl_x0, rel_y, band),
+            gather_slot_patches(blurred, tbl_x0, rel_y, band))
 
 
-def extract_brief(atlas, blurred, tbl_x0, rel_y, band: int):
-    """K2 wrapper: CUDA tensors launch csrc/extract_brief.cu; CPU tensors
-    take `extract_brief_plain`."""
-    if atlas.device.type == "cpu":
-        return extract_brief_plain(atlas, blurred, tbl_x0, rel_y, band)
+def extract_patches_moments_plain(atlas, blurred, tbl_x0, rel_y, band: int):
+    """Plain version of K9: blur patches and the raw patches' IC moments."""
+    raw, blur = extract_patches_plain(atlas, blurred, tbl_x0, rel_y, band)
+    m10, m01 = ic_moments(raw)
+    return blur, m10, m01
+
+
+def extract_patches_t_plain(atlas, blurred, tbl_x0, rel_y, band: int):
+    """Plain version of K10: K9's outputs with the blur patches transposed,
+    blur_t[..., u, v] = blurred[y0 + v, x0 + u]."""
+    blur, m10, m01 = extract_patches_moments_plain(atlas, blurred, tbl_x0,
+                                                   rel_y, band)
+    return blur.transpose(-1, -2).contiguous(), m10, m01
+
+
+def extract_brief_plain(atlas, blurred, tbl_x0, rel_y, band: int,
+                        binned: bool = False):
+    """Plain version of K2 (and with `binned`, K12): IC moments of the raw
+    patches, then BRIEF of the blurred patches at the angle atan2(m01, m10)
+    through cos/sin, as the reference computes it off the TPU
+    (rpe_tpu/ops/atlas.py:365-449, ops/orb.py:436-446); K12 samples the
+    transposed patches at the moments' steering bin
+    (`orb.steered_brief_t_binned`)."""
+    f, s = tbl_x0.shape[0], tbl_x0.shape[1] * tbl_x0.shape[2]
+    if binned:
+        blur_t, m10, m01 = extract_patches_t_plain(atlas, blurred, tbl_x0,
+                                                   rel_y, band)
+        bits = steered_brief_t_binned(blur_t.reshape(f * s, PATCH, PATCH),
+                                      m10.reshape(-1), m01.reshape(-1))
+    else:
+        blur, m10, m01 = extract_patches_moments_plain(atlas, blurred, tbl_x0,
+                                                       rel_y, band)
+        bits = steered_brief(blur.reshape(f * s, PATCH, PATCH),
+                             torch.atan2(m01, m10).reshape(-1))
+    return bits.reshape(f, s, 256), m10, m01
+
+
+# ---- kernel wrappers -----------------------------------------------------
+
+def _check(name, atlas, blurred, tbl_x0, rel_y):
+    """The kernels' preconditions; returns (F, HA, WP, NB, CAP)."""
     if (atlas.dim() != 3 or atlas.shape != blurred.shape
             or atlas.dtype != torch.float32 or blurred.dtype != torch.float32):
-        raise ValueError("extract_brief: atlas/blurred must be matching "
+        raise ValueError(f"{name}: atlas/blurred must be matching "
                          "(F, HA, WP) float32")
-    f, ha, wp = atlas.shape
     if (tbl_x0.shape != rel_y.shape or tbl_x0.dim() != 3
-            or tbl_x0.shape[0] != f or tbl_x0.dtype != torch.int32
-            or rel_y.dtype != torch.int32):
-        raise ValueError("extract_brief: tables must be (F, NB, CAP) int32")
-    kernels.require_cuda("extract_brief", atlas=atlas, blurred=blurred,
-                         tbl_x0=tbl_x0, rel_y=rel_y)
-    _, nb, cap = tbl_x0.shape
+            or tbl_x0.shape[0] != atlas.shape[0]
+            or tbl_x0.dtype != torch.int32 or rel_y.dtype != torch.int32):
+        raise ValueError(f"{name}: tables must be (F, NB, CAP) int32")
+    kernels.require_cuda(name, atlas=atlas, blurred=blurred, tbl_x0=tbl_x0,
+                         rel_y=rel_y)
+    return (*atlas.shape, *tbl_x0.shape[1:])
+
+
+def _ptrs(*tensors):
+    return [None if t is None else kernels.ptr(t) for t in tensors]
+
+
+def extract_brief(atlas, blurred, tbl_x0, rel_y, band: int,
+                  binned: bool = False):
+    """K2 (K12 with `binned`): (bits (F, S, 256) uint8, m10, m01 (F, S)).
+    CUDA tensors launch csrc/extract_brief.cu; CPU tensors take
+    `extract_brief_plain`."""
+    if atlas.device.type == "cpu":
+        return extract_brief_plain(atlas, blurred, tbl_x0, rel_y, band,
+                                   binned)
+    name = "extract_brief_binned" if binned else "extract_brief"
+    f, ha, wp, nb, cap = _check(name, atlas, blurred, tbl_x0, rel_y)
     dev = atlas.device
-    mu, mv, pat = (torch.from_numpy(a).to(dev) for a in _tables_np())
+    mu, mv, pat, bin_idx, bin_cs = _device_tables(dev)
     bits = torch.empty((f, nb * cap, 256), dtype=torch.uint8, device=dev)
     m10 = torch.empty((f, nb * cap), dtype=torch.float32, device=dev)
     m01 = torch.empty_like(m10)
     fn = kernels.lib("extract_brief").extract_brief_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(*(kernels.ptr(t) for t in (atlas, blurred, tbl_x0, rel_y, mu, mv,
-                                        pat, bits, m10, m01)),
+    rc = fn(int(binned), *_ptrs(atlas, blurred, tbl_x0, rel_y, mu, mv, pat,
+                                bin_idx, bin_cs, bits, m10, m01),
             f, ha, wp, nb, cap, int(band), kernels.stream_ptr(atlas))
-    kernels.check("extract_brief", rc)
+    kernels.check(name, rc)
     return bits, m10, m01
+
+
+# mode of csrc/extract_patches.cu per patch kernel
+_PATCH_MODES = {"extract_patches": 0, "extract_patches_moments": 1,
+                "extract_patches_t": 2}
+
+
+def _extract_patches_launch(name, atlas, blurred, tbl_x0, rel_y, band):
+    f, ha, wp, nb, cap = _check(name, atlas, blurred, tbl_x0, rel_y)
+    dev = atlas.device
+    mu, mv = _device_tables(dev)[:2]
+    blur = torch.empty((f, nb * cap, PATCH, PATCH), dtype=torch.float32,
+                       device=dev)
+    if name == "extract_patches":
+        raw, m10, m01 = torch.empty_like(blur), None, None
+    else:
+        raw = None
+        m10 = torch.empty((f, nb * cap), dtype=torch.float32, device=dev)
+        m01 = torch.empty_like(m10)
+    fn = kernels.lib("extract_patches").extract_patches_launch
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(_PATCH_MODES[name], *_ptrs(atlas, blurred, tbl_x0, rel_y, mu, mv,
+                                       raw, blur, m10, m01),
+            f, ha, wp, nb, cap, int(band), kernels.stream_ptr(atlas))
+    kernels.check(name, rc)
+    return (raw, blur) if m10 is None else (blur, m10, m01)
+
+
+def extract_patches(atlas, blurred, tbl_x0, rel_y, band: int):
+    """K8: (raw, blur) patches (F, S, 31, 31) float32; CUDA tensors launch
+    csrc/extract_patches.cu, CPU tensors take `extract_patches_plain`."""
+    if atlas.device.type == "cpu":
+        return extract_patches_plain(atlas, blurred, tbl_x0, rel_y, band)
+    return _extract_patches_launch("extract_patches", atlas, blurred, tbl_x0,
+                                   rel_y, band)
+
+
+def extract_patches_moments(atlas, blurred, tbl_x0, rel_y, band: int):
+    """K9: (blur (F, S, 31, 31), m10, m01 (F, S)); CUDA tensors launch
+    csrc/extract_patches.cu, CPU tensors take the plain version."""
+    if atlas.device.type == "cpu":
+        return extract_patches_moments_plain(atlas, blurred, tbl_x0, rel_y,
+                                             band)
+    return _extract_patches_launch("extract_patches_moments", atlas, blurred,
+                                   tbl_x0, rel_y, band)
+
+
+def extract_patches_t(atlas, blurred, tbl_x0, rel_y, band: int):
+    """K10: (blur_t (F, S, 31, 31) transposed, m10, m01 (F, S)); CUDA
+    tensors launch csrc/extract_patches.cu, CPU tensors take the plain
+    version."""
+    if atlas.device.type == "cpu":
+        return extract_patches_t_plain(atlas, blurred, tbl_x0, rel_y, band)
+    return _extract_patches_launch("extract_patches_t", atlas, blurred,
+                                   tbl_x0, rel_y, band)

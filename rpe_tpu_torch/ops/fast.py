@@ -3,11 +3,14 @@ fused rank-map kernel K1 (port of rpe_tpu/ops/fast.py and the function of
 rpe_tpu/ops/fast_pallas.py `fast_harris_rank_map`).
 
 Every map function works over the last two axes with any leading batch.
+Also the reference's kernel-gate environment switches (`kernel_gate`),
+which choose the ORB extraction route (ops/extract.py `extract_route`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -22,6 +25,32 @@ _CIRCLE = np.array([
     (0, -3), (1, -3), (2, -2), (3, -1), (3, 0), (3, 1), (2, 2), (1, 3),
     (0, 3), (-1, 3), (-2, 2), (-3, 1), (-3, 0), (-3, -1), (-2, -2), (-1, -3),
 ], dtype=np.int32)
+
+
+# The reference's hardware-validated kernel gates (rpe_tpu/ops/fast.py
+# `_VALIDATED_KERNEL_GATES`): on unless set to an off value.
+_VALIDATED_KERNEL_GATES = frozenset({
+    "RPE_PALLAS_5PT",
+    "RPE_PALLAS_EXTRACT",
+    "RPE_PALLAS_MATCH",
+    "RPE_EXTRACT_T",
+    "RPE_EXTRACT_T_BRIEF",
+    "RPE_EXTRACT_MOMENTS",
+    "RPE_EXTRACT_T_QUAD",
+})
+
+_GATE_OFF = ("", "0", "off", "false", "no")
+
+
+def kernel_gate(name: str) -> bool:
+    """True iff the named gate is on, read from the environment at call
+    time: unset means the validated default (on for the names in
+    `_VALIDATED_KERNEL_GATES`, off otherwise); "", "0", "off", "false" and
+    "no" (any case, outer spaces ignored) mean off; anything else on."""
+    v = os.environ.get(name)
+    if v is None:
+        return name in _VALIDATED_KERNEL_GATES
+    return v.strip().lower() not in _GATE_OFF
 
 
 def _neighbor(img, dx: int, dy: int):

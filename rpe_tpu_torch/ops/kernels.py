@@ -16,7 +16,8 @@ sequence of roundings as their plain PyTorch versions.
 `LAUNCHES` counts, per kernel, the launches its wrapper made; the wrappers
 increment it right after a launch succeeds and nowhere else. A source may
 hold more than one kernel (`KERNELS` maps each kernel to its source): K6's
-two modes count under their own names, beside K3 and K7.
+two modes count under their own names, beside K3 and K7; K12 beside K2;
+K5 beside K4; K8, K9 and K10 in one source.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ SOURCES = {
     "match_hamming": ("match_hamming.cu", []),
     "five_point_roots": ("five_point_roots.cu", []),
     "match_l2": ("match_l2.cu", []),
+    "extract_patches": ("extract_patches.cu", ["-fmad=false"]),
 }
 
 # kernel name (as counted in LAUNCHES) -> library it launches from
@@ -51,6 +53,11 @@ KERNELS = {
     "row_top2_hamming": "match_hamming",       # K6, Hamming mode
     "row_top2_l2": "match_l2",                 # K6, L2 mode
     "match_l2": "match_l2",                    # K7
+    "root_brackets": "five_point_roots",       # K5
+    "extract_patches": "extract_patches",      # K8
+    "extract_patches_moments": "extract_patches",  # K9
+    "extract_patches_t": "extract_patches",    # K10
+    "extract_brief_binned": "extract_brief",   # K12
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -3,9 +3,11 @@
 
 Per frame: the fused pyramid atlas, the K1 rank map and blur
 (ops/fast.py), a per-level Harris top-k to OpenCV's geometric quotas, the
-banded slot tables (ops/atlas.py), and K2 (ops/extract.py) for the IC angle
-and the steered 256-bit BRIEF descriptor. Frames are batched on a leading
-axis; outputs are static-size slot arrays with a validity mask.
+banded slot tables (ops/atlas.py), and the extraction route that the
+reference's kernel gates select (ops/extract.py `extract_route`: K2 by
+default) for the IC angle and the steered 256-bit BRIEF descriptor. Frames
+are batched on a leading axis; outputs are static-size slot arrays with a
+validity mask.
 """
 
 from __future__ import annotations
@@ -42,10 +44,29 @@ def brief_pattern(n_pairs: int = 256, seed: int = 12345):
     learned pattern (RPE_BRIEF=cv2) is not ported yet (ROADMAP.md, Queue 1
     item 13)."""
     if os.environ.get("RPE_BRIEF", "gauss") != "gauss":
-        raise NotImplementedError(
-            "RPE_BRIEF=cv2 (the OpenCV BRIEF pattern) is not ported yet: "
-            "ROADMAP.md Queue 1 item 13")
+        _unported("RPE_BRIEF=cv2 (the OpenCV BRIEF pattern)", 13)
     return _brief_pattern_cached(n_pairs, seed)
+
+
+def _unported(what: str, item: int):
+    raise NotImplementedError(
+        f"{what} is not ported yet: ROADMAP.md Queue 1 item {item}")
+
+
+def refuse_unported_switches() -> None:
+    """Raise NotImplementedError where a reference switch asks for a
+    function the port lacks, instead of computing another one: RPE_BRIEF
+    other than "gauss", RPE_BRIEF_QUANT set to anything but "" or "0" (the
+    reference's parse, rpe_tpu/ops/orb.py:187-193), RPE_NO_ATLAS or
+    RPE_NO_FUSED_ATLAS set non-empty (its `if os.environ.get(...)`)."""
+    brief_pattern()
+    q = os.environ.get("RPE_BRIEF_QUANT")
+    if q and q != "0":
+        _unported(f"RPE_BRIEF_QUANT={q!r} (quantised BRIEF samples)", 13)
+    for name, what in (("RPE_NO_ATLAS", "the per-level ORB path"),
+                       ("RPE_NO_FUSED_ATLAS", "the unfused atlas build")):
+        if os.environ.get(name):
+            _unported(f"{name} ({what})", 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,23 +123,93 @@ def ic_angles(patches):
     return torch.atan2(m01, m10)
 
 
-def steered_brief(patches_blur, angles):
-    """Rotated-pattern BRIEF bits: (K, PATCH, PATCH) blurred patches and
-    (K,) angles -> (K, 256) uint8. Each pattern point is rotated by the
-    angle, rounded half-to-even, clamped to the patch, and sampled."""
-    dev = patches_blur.device
-    pat = torch.from_numpy(brief_pattern().astype(np.float32)).to(dev)
+def _sample(patches, flat):
+    """patches (K, PATCH, PATCH), flat (K, N) indices into each -> (K, N)."""
+    k = patches.shape[0]
+    return torch.gather(patches.reshape(k, PATCH * PATCH), 1, flat)
+
+
+def _steered_brief(patches, angles, transposed: bool):
+    pat = torch.from_numpy(brief_pattern().astype(np.float32)).to(
+        angles.device)
     ca, sa = torch.cos(angles), torch.sin(angles)
     px, py = pat[..., 0], pat[..., 1]                         # (256, 2)
     rx = px[None] * ca[:, None, None] - py[None] * sa[:, None, None]
     ry = px[None] * sa[:, None, None] + py[None] * ca[:, None, None]
     ix = torch.clamp(torch.round(rx).to(torch.int64) + PATCH_R, 0, PATCH - 1)
     iy = torch.clamp(torch.round(ry).to(torch.int64) + PATCH_R, 0, PATCH - 1)
-    k = patches_blur.shape[0]
-    flat = (iy * PATCH + ix).reshape(k, 512)
-    vals = torch.gather(patches_blur.reshape(k, PATCH * PATCH), 1, flat)
-    vals = vals.reshape(k, 256, 2)
+    k = patches.shape[0]
+    flat = ix * PATCH + iy if transposed else iy * PATCH + ix
+    vals = _sample(patches, flat.reshape(k, 512)).reshape(k, 256, 2)
     return (vals[..., 0] < vals[..., 1]).to(torch.uint8)
+
+
+def steered_brief(patches_blur, angles):
+    """Rotated-pattern BRIEF bits: (K, PATCH, PATCH) blurred patches and
+    (K,) angles -> (K, 256) uint8. Each pattern point is rotated by the
+    angle, rounded half-to-even, clamped to the patch, and sampled."""
+    return _steered_brief(patches_blur, angles, transposed=False)
+
+
+def steered_brief_t(patches_blur_t, angles):
+    """steered_brief of TRANSPOSED patches, patch_t[u, v] = patch[v, u] (as
+    K10 gives them): the same samples, so the same bits."""
+    return _steered_brief(patches_blur_t, angles, transposed=True)
+
+
+N_BRIEF_BINS = 30  # ORB paper section 4.3: steering discretized to 2*pi/30
+
+
+@functools.lru_cache(maxsize=None)
+def brief_bin_tables(n_bins: int = N_BRIEF_BINS):
+    """Binned-steering sample tables (numpy): ix_tab, iy_tab (n_bins, 512)
+    int32 patch coordinates in [0, 30] of the pattern rotated to each bin
+    centre 2*pi*b/n_bins, column n = j*256 + k for point j of pair k. The
+    rotation, round and clip chain is steered_brief's, in float32. (The
+    reference also returns the same coordinates one-hot, a TPU layout.)"""
+    pat = brief_pattern().astype(np.float32)                 # (256, 2, 2)
+    th = (2.0 * np.pi / n_bins) * np.arange(n_bins)
+    ca = np.cos(th).astype(np.float32)[:, None]              # (B, 1)
+    sa = np.sin(th).astype(np.float32)[:, None]
+    px = pat[:, :, 0].T.reshape(-1).astype(np.float32)[None]  # (1, 512)
+    py = pat[:, :, 1].T.reshape(-1).astype(np.float32)[None]
+    rx = px * ca - py * sa                                   # (B, 512) f32
+    ry = px * sa + py * ca
+    ix = np.clip(np.rint(rx).astype(np.int32) + PATCH_R, 0, 2 * PATCH_R)
+    iy = np.clip(np.rint(ry).astype(np.int32) + PATCH_R, 0, 2 * PATCH_R)
+    return ix, iy
+
+
+@functools.lru_cache(maxsize=None)
+def brief_bin_vectors(n_bins: int = N_BRIEF_BINS):
+    """(cos, sin) of the bin centres, float32 numpy (n_bins,)."""
+    th = (2.0 * np.pi / n_bins) * np.arange(n_bins)
+    return np.cos(th).astype(np.float32), np.sin(th).astype(np.float32)
+
+
+def angle_bins(m10, m01, n_bins: int = N_BRIEF_BINS):
+    """Nearest steering bin of raw IC moments (K,) -> (K,) int32: the first
+    b maximising m10 cos_b + m01 sin_b (each product rounded, then the sum),
+    so zero moments give bin 0."""
+    cosb, sinb = (torch.from_numpy(a).to(m10.device)
+                  for a in brief_bin_vectors(n_bins))
+    dots = m10[:, None] * cosb[None] + m01[:, None] * sinb[None]   # (K, B)
+    mx = dots.max(dim=1, keepdim=True).values
+    idx = torch.where(dots >= mx, torch.arange(
+        n_bins, dtype=torch.int32, device=m10.device), 127)
+    return idx.min(dim=1).values
+
+
+def steered_brief_t_binned(patches_blur_t, m10, m01):
+    """Bits of TRANSPOSED blurred patches (K, PATCH, PATCH) with the ORB
+    paper's 30-bin steering (the function of the reference's binned
+    extraction kernel, K12): the bin from the raw moments (`angle_bins`),
+    the samples from its row of `brief_bin_tables`."""
+    ix, iy = (torch.from_numpy(a.astype(np.int64)).to(m10.device)
+              for a in brief_bin_tables())
+    b = angle_bins(m10, m01).long()
+    vals = _sample(patches_blur_t, (ix * PATCH + iy)[b])          # (K, 512)
+    return (vals[:, :256] < vals[:, 256:]).to(torch.uint8)
 
 
 @functools.lru_cache(maxsize=None)
@@ -200,6 +291,35 @@ def atlas_keypoints(imgs, nfeatures: int = 4000, nlevels: int = 12,
     return out
 
 
+def describe_slots(route: str, atlas, blurred, tbl_x0, rel_y, band: int):
+    """Descriptor bits (F, S, 256) uint8 and IC angle (F, S) of every slot,
+    by extraction route (ops/extract.py `extract_route`). K2 and K12 give
+    bits and moments; after K8, K9 or K10 the angle and the steered BRIEF
+    bits are computed here, as the reference does after its patch kernels
+    (rpe_tpu/ops/orb.py:434-446)."""
+    from . import extract as ex
+
+    args = (atlas, blurred, tbl_x0, rel_y, band)
+    if route in ("extract_brief", "extract_brief_binned"):
+        bits, m10, m01 = ex.extract_brief(
+            *args, binned=route == "extract_brief_binned")
+        return bits, torch.atan2(m01, m10)
+    f, s = tbl_x0.shape[0], tbl_x0.shape[1] * tbl_x0.shape[2]
+    if route == "extract_patches":
+        raw, blur = ex.extract_patches(*args)
+        m10, m01 = ic_moments(raw)
+    elif route == "extract_patches_moments":
+        blur, m10, m01 = ex.extract_patches_moments(*args)
+    elif route == "extract_patches_t":
+        blur, m10, m01 = ex.extract_patches_t(*args)
+    else:
+        raise ValueError(f"unknown extraction route {route!r}")
+    angle = torch.atan2(m01, m10)
+    brief = steered_brief_t if route == "extract_patches_t" else steered_brief
+    bits = brief(blur.reshape(f * s, PATCH, PATCH), angle.reshape(-1))
+    return bits.reshape(f, s, 256), angle
+
+
 def orb_detect_and_describe_atlas(
     imgs,
     nfeatures: int = 4000,
@@ -216,19 +336,24 @@ def orb_detect_and_describe_atlas(
     order (the reference's order):
       xy (2) float32 level-0 pixel coords, angle float32 radians,
       level int32, score float32 (Harris), bits (256) uint8, valid bool.
+
+    The reference's switches are read at call time: its kernel gates pick
+    the extraction route (ops/extract.py `extract_route`), and a switch
+    whose function is not ported raises (`refuse_unported_switches`).
     """
     from .atlas import band_tables
-    from .extract import extract_brief
+    from .extract import extract_route
 
+    refuse_unported_switches()
+    route = extract_route()
     kp = atlas_keypoints(imgs, nfeatures, nlevels, scale_factor,
                          fast_threshold, max_kpts)
     _, total, wp = kp["layout"]
     tb = band_tables(total, wp, kp["xy_atlas"], kp["valid"], patch=PATCH,
                      cap=extract_cap, band=band)
-    bits_slots, m10, m01 = extract_brief(kp["atlas"], kp["blurred"],
-                                         tb["tbl_x0"], tb["rel_y"],
-                                         tb["band"])
-    angle_slots = torch.atan2(m01, m10)
+    bits_slots, angle_slots = describe_slots(
+        route, kp["atlas"], kp["blurred"], tb["tbl_x0"], tb["rel_y"],
+        tb["band"])
 
     order, slot = tb["order"], tb["slot_of_sorted"]
     return {

@@ -16,6 +16,7 @@ from rpe_tpu_torch.ops import extract as textract
 from rpe_tpu_torch.ops import fast as tfast
 from rpe_tpu_torch.ops import orb as torb
 from rpe_tpu_torch.utils.synthetic import make_sequence
+from torch_gates import default_extraction_gates  # noqa: F401
 
 H, W, NLEV = 160, 320, 4
 

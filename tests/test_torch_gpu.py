@@ -18,6 +18,7 @@ from rpe_tpu_torch import rng
 from rpe_tpu_torch.config import EstimatorConfig, MatcherConfig, OrbConfig, \
     RansacConfig, SiftConfig
 from rpe_tpu_torch.geometry import five_point as fp
+from rpe_tpu_torch.ops import extract as textract
 from rpe_tpu_torch.ops import kernels
 from rpe_tpu_torch.ops.atlas import band_tables
 from rpe_tpu_torch.ops.extract import extract_brief, extract_brief_plain
@@ -31,6 +32,7 @@ from rpe_tpu_torch.pipeline.estimator import PoseEstimator, estimate_pair, \
     estimate_pairs_batched, estimate_sequence_batched
 from rpe_tpu_torch.utils.synthetic import float_descriptors, make_sequence, \
     rotation_error_deg
+from torch_gates import default_extraction_gates  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 
@@ -77,18 +79,70 @@ def test_fast_harris_kernel_matches_plain(scene):
     assert float((bk - bp)[0, 8:-8, 8:-8].abs().max()) < 1e-3
 
 
-def test_extract_brief_kernel_matches_plain(scene):
-    kp = scene[3]
+def _slot_args(kp):
+    """The extraction kernels' inputs at band 32, cap 72, and the live-slot
+    mask (1, S)."""
     _, ha, wp = kp["atlas"].shape
     tb = band_tables(ha, wp, kp["xy_atlas"], kp["valid"], cap=72, band=32)
-    args = (kp["atlas"], kp["blurred"], tb["tbl_x0"], tb["rel_y"], 32)
-    bk, m10k, m01k = extract_brief(*args)
-    bp, m10p, m01p = extract_brief_plain(*args)
     live = (tb["rel_y"] >= 0).reshape(1, -1)
+    return (kp["atlas"], kp["blurred"], tb["tbl_x0"], tb["rel_y"], 32), live
+
+
+@pytest.mark.parametrize("binned", [False, True], ids=["k2", "k12_binned"])
+def test_extract_brief_kernel_matches_plain(scene, binned):
+    """K2 and K12: bits agree >= 0.999 with the plain version, moments
+    within rtol 1e-4, atol 2, parked slots zero; one launch."""
+    name = "extract_brief_binned" if binned else "extract_brief"
+    args, live = _slot_args(scene[3])
+    n0 = kernels.LAUNCHES[name]
+    bk, m10k, m01k = extract_brief(*args, binned=binned)
+    bp, m10p, m01p = extract_brief_plain(*args, binned=binned)
+    assert kernels.LAUNCHES[name] == n0 + 1
     assert float((bk == bp)[live].float().mean()) >= 0.999
     torch.testing.assert_close(m10k, m10p, rtol=1e-4, atol=2.0)
     torch.testing.assert_close(m01k, m01p, rtol=1e-4, atol=2.0)
     assert not bk[~live].any() and not m10k[~live].any()
+
+
+@pytest.mark.parametrize("name", ["extract_patches", "extract_patches_moments",
+                                  "extract_patches_t"])
+def test_patch_kernels_match_plain(scene, name):
+    """K8, K9, K10: patches identical, moments as K2's, parked slots zero;
+    one launch each."""
+    args, live = _slot_args(scene[3])
+    n0 = kernels.LAUNCHES[name]
+    got = getattr(textract, name)(*args)
+    want = getattr(textract, name + "_plain")(*args)
+    assert kernels.LAUNCHES[name] == n0 + 1
+    assert torch.equal(got[0], want[0]) and got[0].is_cuda
+    if name == "extract_patches":
+        assert torch.equal(got[1], want[1])
+    else:
+        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=2.0)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=2.0)
+    assert not got[0][~live].any() and not got[1][~live].any()
+
+
+def test_root_brackets_kernel_matches_plain(cuda):
+    """K5 (tests/test_pallas_kernels.py:92-140): identical has_root,
+    endpoints within one grid step, >= 90% within two bisection widths."""
+    g = np.random.default_rng(9)
+    pts = torch.from_numpy(g.uniform(-0.5, 0.5, (256, 5, 2, 2)).astype(
+        np.float32)).to(cuda)
+    _, c = fp.constraint_coeffs(pts[..., 0], pts[..., 1])
+    c = c.contiguous()
+    n0 = kernels.LAUNCHES["root_brackets"]
+    lo, hi, has = fp.find_root_brackets(c)
+    lo_p, hi_p, has_p = fp.find_root_brackets_plain(c)
+    assert kernels.LAUNCHES["root_brackets"] == n0 + 1
+    assert torch.equal(has, has_p) and int(has.sum()) > 256
+    dt = float(np.pi / (fp.GRID - 1))
+    width = dt / (1 << fp.BISECT_ITERS)
+    dlo, dhi = (lo - lo_p)[has].abs(), (hi - hi_p)[has].abs()
+    assert float(dlo.max()) <= dt and float(dhi.max()) <= dt
+    assert float((dlo <= 2 * width).float().mean()) > 0.9
+    assert float((dhi <= 2 * width).float().mean()) > 0.9
+    assert not lo[~has].any() and not hi[~has].any()
 
 
 @pytest.mark.parametrize("n1,n2", [(512, 512), (300, 457)])
@@ -201,6 +255,35 @@ def test_main_path_launches_every_kernel_and_agrees_with_cpu(
         kernels.LAUNCHES
     assert out["R"].is_cuda and bool(torch.isfinite(out["R"]).all())
     cpu = estimate_sequence_batched(frames, K, keys, cfg, device="cpu")
+    assert torch.equal(out["valid"].cpu(), cpu["valid"])
+    assert rotation_error_deg(out["R"].cpu().numpy(),
+                              cpu["R"].numpy()).max() <= 0.5
+    assert rotation_error_deg(out["R"].cpu().numpy(), R_gt[None]).max() < 2.0
+
+
+ROUTES = {  # the reference's gates -> the extraction kernel they select
+    "extract_brief_binned": {"RPE_EXTRACT_T_V7": "1"},
+    "extract_patches_t": {"RPE_EXTRACT_T_BRIEF": "0"},
+    "extract_patches_moments": {"RPE_EXTRACT_T": "0"},
+    "extract_patches": {"RPE_EXTRACT_T": "0", "RPE_EXTRACT_MOMENTS": "0"},
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_route_paths_launch_their_kernel_and_agree_with_cpu(
+        scene, cuda, monkeypatch, route):
+    """Under each route's gates the ORB path launches its extraction kernel
+    in place of K2 and agrees with its CPU run."""
+    frames, K, R_gt, _ = scene
+    for k, v in ROUTES[route].items():
+        monkeypatch.setenv(k, v)
+    keys = torch.stack([rng.PRNGKey(i) for i in range(2)])
+    kernels.reset_launches()
+    out = estimate_sequence_batched(frames, K, keys, SMALL)
+    assert {k for k, n in kernels.LAUNCHES.items() if n > 0} == {
+        "fast_harris", route, "match_hamming", "five_point_roots"}, \
+        kernels.LAUNCHES
+    cpu = estimate_sequence_batched(frames, K, keys, SMALL, device="cpu")
     assert torch.equal(out["valid"].cpu(), cpu["valid"])
     assert rotation_error_deg(out["R"].cpu().numpy(),
                               cpu["R"].numpy()).max() <= 0.5

@@ -25,6 +25,7 @@ from rpe_tpu_torch import config as tcfg
 from rpe_tpu_torch import convert, rng
 from rpe_tpu_torch.pipeline import estimator as test_
 from rpe_tpu_torch.utils.synthetic import make_sequence, rotation_error_deg
+from torch_gates import default_extraction_gates  # noqa: F401
 
 H, W = 160, 320
 ROOT = Path(__file__).resolve().parents[1]
