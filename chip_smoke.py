@@ -562,8 +562,9 @@ def main() -> None:
         lib = ("none: no single PyTorch call computes it"
                if r["library_ms"] is None else f"{r['library_ms']:.4f}")
         say(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
-            f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
-            f"{lib} ms ({card})")
+            f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; the kernel "
+            f"at {100 * r['bound_ms'] / r['ms']:.1f}% of it), library {lib} ms"
+            f" ({card})")
 
     # ---- 4. paths ---------------------------------------------------------------
     keys_np = np.stack([np.array([0, i], np.uint32) for i in range(8)])
@@ -815,8 +816,8 @@ def _profile_main_path(torch, np, estimate, cfgs, card):
     # kernel name fragment (as the profiler shows it) -> table label
     ours_by_name = {
         "fast_harris_kernel": "fast_harris", "extract_brief_kernel":
-        "extract_brief", "match_hamming_kernel<false>": "match_hamming",
-        "match_hamming_kernel<true>": "row_top2_hamming",
+        "extract_brief", "hamming_tc_kernel<false>": "match_hamming",
+        "hamming_tc_kernel<true>": "row_top2_hamming",
         "match_l2_kernel<false>": "match_l2",
         "match_l2_kernel<true>": "row_top2_l2", "sq_norms": "l2 sq_norms",
         "roots_kernel": "roots", "polish_kernel": "polish"}

@@ -1,11 +1,11 @@
-// Column argmin across blocks for the mutual-NN kernels (K3 in
-// match_hamming.cu, K7 in match_l2.cu).
+// Column argmin across blocks for K7's mutual-NN kernel (match_l2.cu; K3 in
+// match_hamming.cu keeps 32-bit keys of its own).
 //
 // Blocks run in no order, so a column's argmin cannot be carried tile to
 // tile as the TPU kernels did over their sequential grid. Each block folds
 // its per-column minimum into colkey[col] with a 64-bit atomicMin on
 // (key << 32 | row), which orders by distance, then by the lowest row; key
-// is the distance itself (Hamming) or `ordered_key` of it (L2).
+// is `ordered_key` of the distance.
 // `finalize_cols` maps the keys to indices with the reference's canonical
 // output: index 0 for an invalid column or a column without valid rows.
 

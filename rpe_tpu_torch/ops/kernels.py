@@ -142,12 +142,17 @@ def check(name: str, rc: int) -> None:
     LAUNCHES[name] += 1
 
 
-def stream_ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+# The launchers' host cost is part of every kernel's time on a path whose
+# device waits for the host, so these two take the shortest calls: the raw
+# stream handle (what `torch.cuda.current_stream(dev).cuda_stream` returns,
+# without building a Stream object) and plain integers, which ctypes
+# passes as c_void_p arguments.
+def stream_ptr(t) -> int:
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> int:
+    return t.data_ptr()
 
 
 def require_cuda(name: str, **tensors) -> None:

@@ -23,6 +23,7 @@ K7 and K6-L2 agree with their plain versions up to float32 reassociation:
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -167,6 +168,7 @@ def _check_inputs(name, desc1, desc2, valid1, valid2, dtype, dim):
     return p, n1, n2
 
 
+@functools.lru_cache(maxsize=None)
 def _launcher(lib_name: str, fn_name: str, n_ptrs: int):
     fn = getattr(kernels.lib(lib_name), fn_name)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 + [
@@ -175,26 +177,39 @@ def _launcher(lib_name: str, fn_name: str, n_ptrs: int):
     return fn
 
 
+# csrc/match_hamming.cu keeps an index in 21 bits of its 32-bit keys
+HAMMING_MAX_N = 1 << 21
+
+
+def check_hamming_n(name, n1, n2):
+    """K3/K6-Hamming's precondition: each side's indices fit the kernels'
+    21 key bits (N1, N2 < 2^21); raises ValueError otherwise."""
+    if max(n1, n2) >= HAMMING_MAX_N:
+        raise ValueError(f"{name}: at most {HAMMING_MAX_N - 1} descriptors "
+                         f"per side, got N1={n1}, N2={n2}")
+
+
 def mutual_nn_hamming(bits1, bits2, valid1, valid2):
     """K3: mutual-NN pieces for {0,1} bit descriptors, batched over pairs.
 
     bits1 (P, N1, 256), bits2 (P, N2, 256) uint8; valid (P, N1), (P, N2)
-    bool. Returns best_d (P, N1) float32 (true Hamming distance to the
-    nearest valid column, _BIG when none), nn12 (P, N1) int32, nn21
-    (P, N2) int32 -- bit-identical to the argmins of the masked distance
-    matrix. Replaces rpe_tpu/ops/match_pallas.py `mutual_nn_hamming`. CUDA
-    tensors launch csrc/match_hamming.cu; CPU tensors take the plain
-    version.
+    bool; N1, N2 < 2^21. Returns best_d (P, N1) float32 (true Hamming
+    distance to the nearest valid column, _BIG when none), nn12 (P, N1)
+    int32, nn21 (P, N2) int32 -- bit-identical to the argmins of the masked
+    distance matrix. Replaces rpe_tpu/ops/match_pallas.py
+    `mutual_nn_hamming`. CUDA tensors launch csrc/match_hamming.cu; CPU
+    tensors take the plain version.
     """
     if bits1.device.type == "cpu":
         return mutual_nn_hamming_plain(bits1, bits2, valid1, valid2)
     p, n1, n2 = _check_inputs("mutual_nn_hamming", bits1, bits2, valid1,
                               valid2, torch.uint8, 256)
+    check_hamming_n("mutual_nn_hamming", n1, n2)
     dev = bits1.device
     best_d = torch.empty((p, n1), dtype=torch.float32, device=dev)
     nn12 = torch.empty((p, n1), dtype=torch.int32, device=dev)
     nn21 = torch.empty((p, n2), dtype=torch.int32, device=dev)
-    colkey = torch.empty((p, n2), dtype=torch.int64, device=dev)
+    colkey = torch.empty((p, n2), dtype=torch.int32, device=dev)
     fn = _launcher("match_hamming", "match_hamming_launch", 8)
     rc = fn(*(kernels.ptr(t) for t in (bits1, bits2, valid1, valid2, best_d,
                                         nn12, nn21, colkey)),
@@ -258,7 +273,8 @@ def row_top2(desc1, desc2, valid1, valid2, norm: str = "hamming"):
     """K6: per-row (best distance, its lowest index, second best) for the
     Lowe ratio test, batched over pairs.
 
-    norm="hamming": desc (P, N, 256) uint8 {0,1} bits, exact distances.
+    norm="hamming": desc (P, N, 256) uint8 {0,1} bits, N < 2^21, exact
+    distances.
     norm="l2": desc (P, N, 128) float32, squared L2 clamped at 0, equal to
     the plain version up to float32 reassociation. The second best is the
     minimum over every other valid column (equal to the best when the best
@@ -284,7 +300,9 @@ def row_top2(desc1, desc2, valid1, valid2, norm: str = "hamming"):
     a1 = torch.empty((p, n1), dtype=torch.int32, device=dev)
     d2 = torch.empty((p, n1), dtype=torch.float32, device=dev)
     tensors = [desc1, desc2, valid1, valid2, d1, a1, d2]
-    if norm == "l2":
+    if norm == "hamming":
+        check_hamming_n(name, n1, n2)
+    else:
         tensors += [torch.empty((p, n1), dtype=torch.float32, device=dev),
                     torch.empty((p, n2), dtype=torch.float32, device=dev)]
     fn = _launcher(lib_name, f"{name}_launch", len(tensors))

@@ -145,37 +145,57 @@ def test_root_brackets_kernel_matches_plain(cuda):
     assert not lo[~has].any() and not hi[~has].any()
 
 
-@pytest.mark.parametrize("n1,n2", [(512, 512), (300, 457)])
-def test_match_hamming_kernel_identical(cuda, n1, n2):
-    g = np.random.default_rng(n1 + n2)
-    b1 = torch.from_numpy(g.uniform(size=(2, n1, 256)) < 0.5).to(
-        torch.uint8).to(cuda)
-    b2 = torch.from_numpy(g.uniform(size=(2, n2, 256)) < 0.5).to(
-        torch.uint8).to(cuda)
-    b2[:, :n2 // 2, 16:] = b1[:, :n2 // 2, 16:]        # near-duplicates, ties
-    v1 = torch.from_numpy(g.uniform(size=(2, n1)) < 0.9).to(cuda)
-    v2 = torch.from_numpy(g.uniform(size=(2, n2)) < 0.9).to(cuda)
-    v2[1] = False                                      # no valid columns
-    for k, p in zip(mutual_nn_hamming(b1, b2, v1, v2),
-                    mutual_nn_hamming_plain(b1, b2, v1, v2)):
-        assert torch.equal(k, p)
+# (P, N1, N2, kind): ragged edges of the kernel's 256-row and 128-column
+# tiles, the chunk's shape, every cell tied, and pairs without valid rows
+HAMMING_CASES = [(2, 512, 512, "random"), (2, 300, 457, "random"),
+                 (2, 129, 1000, "random"), (2, 1, 257, "random"),
+                 (8, 4096, 4096, "random"), (2, 300, 457, "identical"),
+                 (3, 300, 457, "no_valid_rows")]
+HAMMING_IDS = [f"{p}x{n1}x{n2}-{kind}" for p, n1, n2, kind in HAMMING_CASES]
 
 
-@pytest.mark.parametrize("n1,n2", [(512, 512), (300, 457)])
-def test_row_top2_hamming_kernel_identical(cuda, n1, n2):
-    g = np.random.default_rng(n1 * n2)
-    b1 = torch.from_numpy(g.uniform(size=(2, n1, 256)) < 0.5).to(
-        torch.uint8).to(cuda)
-    b2 = torch.from_numpy(g.uniform(size=(2, n2, 256)) < 0.5).to(
-        torch.uint8).to(cuda)
-    b2[:, :n2 // 2, 16:] = b1[:, :n2 // 2, 16:]
-    b2[:, n2 // 2:n2 // 2 + 8] = b2[:, :8]             # best tied at 2 columns
-    v1 = torch.from_numpy(g.uniform(size=(2, n1)) < 0.9).to(cuda)
-    v2 = torch.from_numpy(g.uniform(size=(2, n2)) < 0.9).to(cuda)
-    v2[1] = False
-    for k, p in zip(row_top2(b1, b2, v1, v2, "hamming"),
-                    row_top2_plain(b1, b2, v1, v2, "hamming")):
-        assert torch.equal(k, p)
+def _hamming_inputs(cuda, seed, p, n1, n2, kind, tied_best=False):
+    """{0,1} descriptors of P pairs with near-duplicates (ties); the last
+    pair has no valid columns. "identical": every descriptor of both sides
+    equal, so every cell ties across tiles and CTAs; "no_valid_rows": pair
+    0 has no valid rows."""
+    g = np.random.default_rng(seed)
+    b1 = torch.from_numpy(g.uniform(size=(p, n1, 256)) < 0.5).to(torch.uint8)
+    b2 = torch.from_numpy(g.uniform(size=(p, n2, 256)) < 0.5).to(torch.uint8)
+    m = min(n1, n2 // 2)
+    b2[:, :m, 16:] = b1[:, :m, 16:]                     # near-duplicates, ties
+    if tied_best:
+        b2[:, n2 // 2:n2 // 2 + 8] = b2[:, :8]         # best tied at 2 columns
+    if kind == "identical":
+        b1[:] = b1[:1, :1]
+        b2[:] = b1[:1, :1]
+    v1 = torch.from_numpy(g.uniform(size=(p, n1)) < 0.9)
+    v2 = torch.from_numpy(g.uniform(size=(p, n2)) < 0.9)
+    v2[-1] = False                                     # no valid columns
+    if kind == "no_valid_rows":
+        v1[0] = False
+    return [t.to(cuda) for t in (b1, b2, v1, v2)]
+
+
+@pytest.mark.parametrize("p,n1,n2,kind", HAMMING_CASES, ids=HAMMING_IDS)
+def test_match_hamming_kernel_identical(cuda, p, n1, n2, kind):
+    b1, b2, v1, v2 = _hamming_inputs(cuda, n1 + n2, p, n1, n2, kind)
+    n0 = kernels.LAUNCHES["match_hamming"]
+    got = mutual_nn_hamming(b1, b2, v1, v2)
+    assert kernels.LAUNCHES["match_hamming"] == n0 + 1
+    for k, w in zip(got, mutual_nn_hamming_plain(b1, b2, v1, v2)):
+        assert torch.equal(k, w)
+
+
+@pytest.mark.parametrize("p,n1,n2,kind", HAMMING_CASES, ids=HAMMING_IDS)
+def test_row_top2_hamming_kernel_identical(cuda, p, n1, n2, kind):
+    b1, b2, v1, v2 = _hamming_inputs(cuda, n1 * n2, p, n1, n2, kind,
+                                     tied_best=True)
+    n0 = kernels.LAUNCHES["row_top2_hamming"]
+    got = row_top2(b1, b2, v1, v2, "hamming")
+    assert kernels.LAUNCHES["row_top2_hamming"] == n0 + 1
+    for k, w in zip(got, row_top2_plain(b1, b2, v1, v2, "hamming")):
+        assert torch.equal(k, w)
 
 
 def _float_descriptors(cuda, seed, n1, n2):

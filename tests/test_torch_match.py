@@ -281,3 +281,16 @@ def test_near_tie_contract():
     cols = tmatch.argmin_mismatches(D, torch.tensor([[0, 1, 1]]),
                                     torch.tensor([[0, 1, 2]]), valid, -2)
     assert cols[0] == 1 and abs(cols[2] - 0.4) < 1e-6
+
+
+def test_hamming_kernels_refuse_wide_indices():
+    """K3/K6-Hamming keep an index in 21 bits of a 32-bit key: a side of
+    2^21 descriptors or more is refused before any launch, anything below
+    passes."""
+    n = tmatch.HAMMING_MAX_N
+    assert n == 1 << 21
+    for n1, n2 in ((n - 1, 4), (4, n - 1), (0, 0)):
+        tmatch.check_hamming_n("k", n1, n2)
+    for n1, n2 in ((n, 4), (4, n)):
+        with pytest.raises(ValueError, match="k: at most 2097151"):
+            tmatch.check_hamming_n("k", n1, n2)
