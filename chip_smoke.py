@@ -58,6 +58,8 @@ H, W = 376, 1241           # KITTI frames, the parity configuration's size
 # each kernel's operation bound
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12          # CUDA-core float32
+TF32X3_TC_OPS_PER_S = 494.7e12 / 3  # TF32 tensor cores, three products per
+                                    # float32 product (K7, K6-L2)
 INT8_TC_OPS_PER_S = 1979e12     # int8 tensor cores (K3's work as a GEMM)
 
 
@@ -419,7 +421,8 @@ def main() -> None:
     s2t = s2.transpose(-1, -2)
     l2_ops = 2.0 * valid_cells(w1, w2) * 128
     b_ms, b_by = bound((sv1 + sv2) * 128 * 4 + npair * (sn1 + sn2)
-                       + 4 * npair * (2 * sn1 + sn2), l2_ops, FP32_OPS_PER_S)
+                       + 4 * npair * (2 * sn1 + sn2), l2_ops,
+                       TF32X3_TC_OPS_PER_S)
     rows["match_l2"] = dict(
         name="match_l2", route="cuda", source="rpe_tpu_torch/csrc/match_l2.cu",
         replaces="rpe_tpu/ops/match_pallas.py:242", max_abs_err=k7_err,
@@ -442,7 +445,7 @@ def main() -> None:
           f"{m1[2]:.3e} <= 1e-5); d1/d2 max abs err {k6_err:.3e} (<= 1e-5); "
           f"canonical invalid rows={canon}")
     b_ms, b_by = bound((sv1 + sv2) * 128 * 4 + npair * (sn1 + sn2)
-                       + 4 * 3 * npair * sn1, l2_ops, FP32_OPS_PER_S)
+                       + 4 * 3 * npair * sn1, l2_ops, TF32X3_TC_OPS_PER_S)
     rows["row_top2_l2"] = dict(
         name="row_top2_l2", route="cuda", source="rpe_tpu_torch/csrc/match_l2.cu",
         replaces="rpe_tpu/ops/match_pallas.py:111", max_abs_err=k6_err,
@@ -818,8 +821,8 @@ def _profile_main_path(torch, np, estimate, cfgs, card):
         "fast_harris_kernel": "fast_harris", "extract_brief_kernel":
         "extract_brief", "hamming_tc_kernel<false>": "match_hamming",
         "hamming_tc_kernel<true>": "row_top2_hamming",
-        "match_l2_kernel<false>": "match_l2",
-        "match_l2_kernel<true>": "row_top2_l2", "sq_norms": "l2 sq_norms",
+        "l2_tc_kernel<false>": "match_l2",
+        "l2_tc_kernel<true>": "row_top2_l2", "split_kernel": "l2 split",
         "roots_kernel": "roots", "polish_kernel": "polish"}
     keys = np.stack([np.array([0, i], np.uint32) for i in range(8)])
     for name, cfg in cfgs.items():

@@ -53,14 +53,14 @@
 // - Canonical outputs as the reference's (`_mutual_nn`): best_d = _BIG and
 //   index 0 for an invalid row or a row without valid columns; index 0 for
 //   an invalid column or a column without valid rows.
-// The tensor maps come from `cuTensorMapEncodeTiled`, reached through the
-// runtime's `cudaGetDriverEntryPointByVersion` (no libcuda at link time).
+// TMA, mbarrier and descriptor helpers: sm90.cuh.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "error_string.cuh"
+#include "sm90.cuh"
 
 #define ROWS 256                  // rows per CTA
 #define TILE 128                  // columns per streamed tile
@@ -84,56 +84,6 @@ constexpr int SMEM_BYTES = 1024                     // alignment slack
                            + 2 * STAGES * TILE * 4  // B terms, column maxima
                            + ROWS * 4               // A terms
                            + (3 * STAGES + 4) * 8;  // mbarriers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-                 "r"(bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    uint32_t done;
-    do {
-        asm volatile(
-            "{\n\t.reg .pred p;\n\t"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-            "selp.u32 %0, 1, 0, p;\n\t}"
-            : "=r"(done)
-            : "r"(bar), "r"(parity)
-            : "memory");
-    } while (!done);
-}
-
-// one 128-byte-wide box of a (P, N, 256) byte tensor, at K offset kx
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
-                                        uint32_t bar, int kx, int row, int pair) {
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(kx), "r"(row), "r"(pair)
-        : "memory");
-}
-
-// K-major operand in 8-row x 128-byte swizzled atoms, as TMA writes them:
-// start address >> 4, leading offset unused (1), 1024 bytes between atoms,
-// layout SWIZZLE_128B
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-    return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
-           ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
 
 __device__ __forceinline__ void fence_acc(uint32_t (&d)[64]) {
 #pragma unroll
@@ -482,40 +432,11 @@ __global__ void finalize_cols32(const uint32_t* __restrict__ colkey,
     nn21[i] = (valid2[i] && k >= VALID) ? (int)(IDX_MASK - (k & IDX_MASK)) : 0;
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// (P, N, 256) bytes as a 3-D tensor of 128-byte x `rows` boxes, 128-byte
-// swizzle; rows past N read as zeros
+// (P, N, 256) bytes as 128-byte x `rows` boxes, 128-byte swizzle; rows
+// past N read as zeros
 static int tensor_map(CUtensorMap* map, const uint8_t* bits, int P, int N, int rows) {
-    static EncodeTiled encode = nullptr;
-    if (encode == nullptr) {
-        void* fn = nullptr;
-        cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-        cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn,
-                                                         12000, cudaEnableDefault, &q);
-#else
-        cudaError_t e =
-            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
-#endif
-        if (e != cudaSuccess) return (int)e;
-        if (q != cudaDriverEntryPointSuccess || fn == nullptr)
-            return (int)cudaErrorSymbolNotFound;
-        encode = (EncodeTiled)fn;
-    }
-    const cuuint64_t dims[3] = {KBYTES, (cuuint64_t)N, (cuuint64_t)P};
-    const cuuint64_t strides[2] = {KBYTES, (cuuint64_t)N * KBYTES};
-    const cuuint32_t box[3] = {BOX_BYTES, (cuuint32_t)rows, 1};
-    const cuuint32_t estr[3] = {1, 1, 1};
-    CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, (void*)bits, dims, strides,
-                        box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+    return tensor_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, bits, KBYTES, N, P,
+                         BOX_BYTES, rows);
 }
 
 // the main kernel (K3's column keys are zeroed by the caller)

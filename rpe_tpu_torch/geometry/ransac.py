@@ -53,7 +53,7 @@ def ransac_essential(key, pts1_n, pts2_n, valid_mask, threshold_n,
     if lo:
         raise NotImplementedError(
             "RansacConfig.lo (LO-RANSAC) is not ported yet: ROADMAP.md "
-            "Queue 1 item 6")
+            'Queue 1, "Switches that raise NotImplementedError today"')
     p, n = valid_mask.shape
     ar = torch.arange(p, device=pts1_n.device)
     num_valid = valid_mask.sum(-1, dtype=torch.int32)

@@ -16,8 +16,11 @@ kernel or raises):
   K6 `row_top2`            csrc/match_hamming.cu (norm="hamming") and
                            csrc/match_l2.cu (norm="l2"): per-row best
                            distance, its index and the second best
-K7 and K6-L2 agree with their plain versions up to float32 reassociation:
-`argmin_mismatches` and `near_tie_ok` state that contract.
+K3 and K6-Hamming run on the int8 tensor cores and are exact. K7 and K6-L2
+run their Gram products on the TF32 tensor cores from a hi + lo split of
+each value (three products, float32 accumulation), so they agree with their
+plain versions up to the rounding of a.b: `argmin_mismatches` and
+`near_tie_ok` state that contract.
 """
 
 from __future__ import annotations
@@ -218,6 +221,51 @@ def mutual_nn_hamming(bits1, bits2, valid1, valid2):
     return best_d, nn12, nn21
 
 
+# csrc/match_l2.cu indexes slots and descriptors of all pairs with 32-bit
+# ints and puts the pair on the grid's y axis
+L2_MAX_PAIRS = 65535
+L2_MAX_SLOTS = (1 << 31) - 1
+
+
+def check_l2_shape(name, p, n1, n2):
+    """K7/K6-L2's precondition: P <= 65535 pairs and P * N < 2^31 slots on
+    each side; raises ValueError otherwise."""
+    if p > L2_MAX_PAIRS or p * max(n1, n2) > L2_MAX_SLOTS:
+        raise ValueError(f"{name}: at most {L2_MAX_PAIRS} pairs and "
+                         f"{L2_MAX_SLOTS} descriptors per side over all "
+                         f"pairs, got P={p}, N1={n1}, N2={n2}")
+
+
+@functools.lru_cache(maxsize=64)
+def _l2_scratch_bytes(p: int, n1: int, n2: int) -> int:
+    """Bytes of csrc/match_l2.cu's scratch for one call (its hi/lo split,
+    norms, tile flags and column keys)."""
+    fn = kernels.lib("match_l2").match_l2_scratch_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_size_t
+    return int(fn(p, n1, n2))
+
+
+def _l2_launch(name, fn_name, desc1, desc2, valid1, valid2, out_spec):
+    """Check the inputs, allocate the outputs ((dtype, side) each: a (P, N1)
+    or (P, N2) tensor) and the scratch, launch one of csrc/match_l2.cu's
+    entry points and count it."""
+    p, n1, n2 = _check_inputs(name, desc1, desc2, valid1, valid2,
+                              torch.float32, 128)
+    check_l2_shape(name, p, n1, n2)
+    dev = desc1.device
+    outs = tuple(torch.empty((p, n1 if side == 1 else n2), dtype=dtype,
+                             device=dev) for dtype, side in out_spec)
+    scratch = torch.empty(_l2_scratch_bytes(p, n1, n2), dtype=torch.uint8,
+                          device=dev)
+    fn = _launcher("match_l2", fn_name, 8)
+    rc = fn(*(kernels.ptr(t) for t in (desc1, desc2, valid1, valid2, *outs,
+                                        scratch)),
+            p, n1, n2, kernels.stream_ptr(desc1))
+    kernels.check(name, rc)
+    return outs
+
+
 def mutual_nn_l2_plain(desc1, desc2, valid1, valid2):
     """Plain version of K7: the clamped squared-L2 matrix and its masked
     argmins (the reference's formulation off the TPU)."""
@@ -234,28 +282,16 @@ def mutual_nn_l2(desc1, desc2, valid1, valid2):
     (P, N2) bool. Returns best_d (P, N1) float32 (distance to the nearest
     valid column, clamped at 0; _BIG when none), nn12 (P, N1) int32, nn21
     (P, N2) int32: the argmins of the clamped, masked distance matrix up to
-    float32 reassociation of the dot products (a near-tie may resolve to
-    the other candidate). Replaces rpe_tpu/ops/match_pallas.py
-    `mutual_nn_l2sq`. CUDA tensors launch csrc/match_l2.cu; CPU tensors
-    take the plain version.
+    the rounding of the dot products (a near-tie may resolve to the other
+    candidate). P <= 65535 and P * N < 2^31 per side. Replaces
+    rpe_tpu/ops/match_pallas.py `mutual_nn_l2sq`. CUDA tensors launch
+    csrc/match_l2.cu; CPU tensors take the plain version.
     """
     if desc1.device.type == "cpu":
         return mutual_nn_l2_plain(desc1, desc2, valid1, valid2)
-    p, n1, n2 = _check_inputs("mutual_nn_l2", desc1, desc2, valid1, valid2,
-                              torch.float32, 128)
-    dev = desc1.device
-    best_d = torch.empty((p, n1), dtype=torch.float32, device=dev)
-    nn12 = torch.empty((p, n1), dtype=torch.int32, device=dev)
-    nn21 = torch.empty((p, n2), dtype=torch.int32, device=dev)
-    na = torch.empty((p, n1), dtype=torch.float32, device=dev)
-    nb = torch.empty((p, n2), dtype=torch.float32, device=dev)
-    colkey = torch.empty((p, n2), dtype=torch.int64, device=dev)
-    fn = _launcher("match_l2", "match_l2_launch", 10)
-    rc = fn(*(kernels.ptr(t) for t in (desc1, desc2, valid1, valid2, best_d,
-                                        nn12, nn21, na, nb, colkey)),
-            p, n1, n2, kernels.stream_ptr(desc1))
-    kernels.check("match_l2", rc)
-    return best_d, nn12, nn21
+    return _l2_launch("match_l2", "match_l2_launch", desc1, desc2, valid1,
+                      valid2, ((torch.float32, 1), (torch.int32, 1),
+                               (torch.int32, 2)))
 
 
 def row_top2_plain(desc1, desc2, valid1, valid2, norm: str = "hamming"):
@@ -276,9 +312,11 @@ def row_top2(desc1, desc2, valid1, valid2, norm: str = "hamming"):
     norm="hamming": desc (P, N, 256) uint8 {0,1} bits, N < 2^21, exact
     distances.
     norm="l2": desc (P, N, 128) float32, squared L2 clamped at 0, equal to
-    the plain version up to float32 reassociation. The second best is the
-    minimum over every other valid column (equal to the best when the best
-    is tied at another index); an invalid row gives (_BIG, 0, _BIG).
+    the plain version up to the rounding of a.b; P <= 65535, P * N < 2^31
+    per side.
+    The second best is the minimum over every other valid column (equal to
+    the best when the best is tied at another index); an invalid row gives
+    (_BIG, 0, _BIG).
     Returns d1 (P, N1) float32, a1 (P, N1) int32, d2 (P, N1) float32.
     Replaces rpe_tpu/ops/match_pallas.py `_row_top2`. CUDA tensors launch
     csrc/match_hamming.cu or csrc/match_l2.cu; CPU tensors take the plain
@@ -286,30 +324,26 @@ def row_top2(desc1, desc2, valid1, valid2, norm: str = "hamming"):
     """
     if desc1.device.type == "cpu":
         return row_top2_plain(desc1, desc2, valid1, valid2, norm)
-    if norm == "hamming":
-        lib_name, name, dtype, dim = ("match_hamming", "row_top2_hamming",
-                                      torch.uint8, 256)
-    elif norm == "l2":
-        lib_name, name, dtype, dim = ("match_l2", "row_top2_l2",
-                                      torch.float32, 128)
-    else:
+    if norm == "l2":
+        return _l2_launch("row_top2_l2", "row_top2_l2_launch", desc1, desc2,
+                          valid1, valid2, ((torch.float32, 1),
+                                           (torch.int32, 1),
+                                           (torch.float32, 1)))
+    if norm != "hamming":
         raise ValueError(f"Unknown norm type: {norm}")
-    p, n1, n2 = _check_inputs(name, desc1, desc2, valid1, valid2, dtype, dim)
+    name = "row_top2_hamming"
+    p, n1, n2 = _check_inputs(name, desc1, desc2, valid1, valid2,
+                              torch.uint8, 256)
+    check_hamming_n(name, n1, n2)
     dev = desc1.device
-    d1 = torch.empty((p, n1), dtype=torch.float32, device=dev)
-    a1 = torch.empty((p, n1), dtype=torch.int32, device=dev)
-    d2 = torch.empty((p, n1), dtype=torch.float32, device=dev)
-    tensors = [desc1, desc2, valid1, valid2, d1, a1, d2]
-    if norm == "hamming":
-        check_hamming_n(name, n1, n2)
-    else:
-        tensors += [torch.empty((p, n1), dtype=torch.float32, device=dev),
-                    torch.empty((p, n2), dtype=torch.float32, device=dev)]
-    fn = _launcher(lib_name, f"{name}_launch", len(tensors))
-    rc = fn(*(kernels.ptr(t) for t in tensors), p, n1, n2,
-            kernels.stream_ptr(desc1))
+    outs = (torch.empty((p, n1), dtype=torch.float32, device=dev),
+            torch.empty((p, n1), dtype=torch.int32, device=dev),
+            torch.empty((p, n1), dtype=torch.float32, device=dev))
+    fn = _launcher("match_hamming", f"{name}_launch", 7)
+    rc = fn(*(kernels.ptr(t) for t in (desc1, desc2, valid1, valid2, *outs)),
+            p, n1, n2, kernels.stream_ptr(desc1))
     kernels.check(name, rc)
-    return d1, a1, d2
+    return outs
 
 
 NEAR_TIE_TOL = 1e-5    # distance gap within which two candidates are a tie

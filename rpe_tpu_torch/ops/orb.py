@@ -41,16 +41,17 @@ def brief_pattern(n_pairs: int = 256, seed: int = 12345):
     """BRIEF pattern: (n_pairs, 2, 2) int32 (x, y), the reference's "gauss"
     kind: points ~ N(0, (31/5)^2) rounded, kept by rejection within radius
     PATTERN_R so any rotation stays inside the 31x31 patch. The OpenCV
-    learned pattern (RPE_BRIEF=cv2) is not ported yet (ROADMAP.md, Queue 1
-    item 13)."""
+    learned pattern (RPE_BRIEF=cv2) is not ported yet (ROADMAP.md, Queue 1,
+    "Switches that raise NotImplementedError today")."""
     if os.environ.get("RPE_BRIEF", "gauss") != "gauss":
-        _unported("RPE_BRIEF=cv2 (the OpenCV BRIEF pattern)", 13)
+        _unported("RPE_BRIEF=cv2 (the OpenCV BRIEF pattern)")
     return _brief_pattern_cached(n_pairs, seed)
 
 
-def _unported(what: str, item: int):
+def _unported(what: str):
     raise NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md Queue 1 item {item}")
+        f"{what} is not ported yet: ROADMAP.md Queue 1, \"Switches that "
+        f"raise NotImplementedError today\"")
 
 
 def refuse_unported_switches() -> None:
@@ -62,11 +63,11 @@ def refuse_unported_switches() -> None:
     brief_pattern()
     q = os.environ.get("RPE_BRIEF_QUANT")
     if q and q != "0":
-        _unported(f"RPE_BRIEF_QUANT={q!r} (quantised BRIEF samples)", 13)
+        _unported(f"RPE_BRIEF_QUANT={q!r} (quantised BRIEF samples)")
     for name, what in (("RPE_NO_ATLAS", "the per-level ORB path"),
                        ("RPE_NO_FUSED_ATLAS", "the unfused atlas build")):
         if os.environ.get(name):
-            _unported(f"{name} ({what})", 4)
+            _unported(f"{name} ({what})")
 
 
 @functools.lru_cache(maxsize=None)

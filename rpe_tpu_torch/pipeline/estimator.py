@@ -198,7 +198,10 @@ def estimate_pair(img1, img2, K, key, cfg: EstimatorConfig = EstimatorConfig(),
 class PoseEstimator:
     """Reference-compatible single-pair API (rpe_tpu/pipeline/estimator.py
     `PoseEstimator`): RuntimeError on < 5 matches or essential-matrix
-    failure. VP refinement is not ported yet (ROADMAP.md Queue 1 item 12)."""
+    failure. VP refinement is not ported yet (ROADMAP.md Queue 1, "VP
+    refinement"): as in the reference, it runs only when `R_prev` is given,
+    so without `R_prev` the VP-on estimator returns the plain pose, and with
+    it the call raises NotImplementedError."""
 
     def __init__(
         self,
@@ -239,9 +242,6 @@ class PoseEstimator:
         if config.feature_method.upper() not in ("ORB", "SIFT"):
             raise ValueError(
                 f"Unknown feature extraction method: {feature_method}")
-        if config.vp.enabled:
-            raise NotImplementedError(
-                "VP refinement is not ported yet: ROADMAP.md Queue 1 item 12")
         self.K = np.asarray(camera_matrix, dtype=np.float32)
         self.config = config
         self.device = resolve_device(device)
@@ -260,6 +260,10 @@ class PoseEstimator:
         return out["R"], out["t"]
 
     def estimate_with_debug(self, img1, img2, R_prev=None):
+        if self.config.vp.enabled and R_prev is not None:
+            raise NotImplementedError(
+                "VP refinement is not ported yet: ROADMAP.md Queue 1, "
+                '"VP refinement"')
         out = estimate_pair(img1, img2, self.K, self._next_key(),
                             cfg=self.config, device=self.device)
         num_matches = int(out["num_matches"])

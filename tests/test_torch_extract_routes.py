@@ -357,7 +357,7 @@ def test_orb_route_matches_reference(monkeypatch, frames, gates, route):
 ])
 def test_unported_switches_raise(monkeypatch, name, value, item):
     """A switch whose function is not ported raises, on the device="cpu"
-    path too, naming its ROADMAP item; off values do not."""
+    path too, naming its ROADMAP item by title; off values do not."""
     monkeypatch.setenv(name, value)
     if item is None:
         torb.refuse_unported_switches()
@@ -367,5 +367,6 @@ def test_unported_switches_raise(monkeypatch, name, value, item):
     cfg = EstimatorConfig(orb=OrbConfig(nfeatures=256, nlevels=NLEV,
                                         max_kpts=256))
     with pytest.raises(NotImplementedError,
-                       match=f"{name}.*ROADMAP.md Queue 1 item {item}$"):
+                       match=f'{name}.*ROADMAP.md Queue 1, "Switches that '
+                       f'raise NotImplementedError today"$'):
         estimate_sequence_batched(frames, K, keys, cfg, device="cpu")

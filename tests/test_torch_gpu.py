@@ -198,41 +198,97 @@ def test_row_top2_hamming_kernel_identical(cuda, p, n1, n2, kind):
         assert torch.equal(k, w)
 
 
-def _float_descriptors(cuda, seed, n1, n2):
-    """Two pairs with distance-0 ties; the second pair's first half of
-    columns invalid."""
-    d1, d2, v1, v2 = float_descriptors(seed, n1, n2, pairs=2, dup=True)
-    v2[1, : n2 // 2] = False
+# (P, N1, N2, kind): the earlier shapes, ragged edges of the kernel's
+# 128-row and 128-column tiles, the chunk's shape, every cell tied, a pair
+# without valid rows, and valid columns forming a prefix (the later column
+# tiles are skipped)
+L2_CASES = [(2, 512, 512, "random"), (2, 300, 457, "random"),
+            (2, 129, 1000, "random"), (2, 1, 257, "random"),
+            (8, 4096, 4096, "random"), (2, 300, 457, "identical"),
+            (3, 300, 457, "no_valid_rows"), (2, 300, 1000, "prefix")]
+L2_IDS = [f"{p}x{n1}x{n2}-{kind}" for p, n1, n2, kind in L2_CASES]
+
+
+def _float_descriptors(cuda, seed, p, n1, n2, kind):
+    """SIFT-like descriptors of P pairs with distance-0 ties; the last
+    pair's first half of columns invalid. "identical": every descriptor of
+    both sides equal, so every cell ties across tiles and CTAs;
+    "no_valid_rows": pair 0 has no valid rows; "prefix": only the first
+    quarter of each pair's columns may be valid."""
+    d1, d2, v1, v2 = float_descriptors(seed, n1, n2, pairs=p, dup=True)
+    v2[-1, : n2 // 2] = False
+    if kind == "identical":
+        d1[:] = d1[:1, :1]
+        d2[:] = d1[:1, :1]
+    if kind == "no_valid_rows":
+        v1[0] = False
+    if kind == "prefix":
+        v2[:, n2 // 4:] = False
     return [torch.from_numpy(a).to(cuda) for a in (d1, d2, v1, v2)]
 
 
-@pytest.mark.parametrize("n1,n2", [(512, 512), (300, 457)])
-def test_match_l2_kernel_matches_plain(cuda, n1, n2):
-    d1, d2, v1, v2 = _float_descriptors(cuda, n1 + 7 * n2, n1, n2)
-    Dm = torch.where(v1[..., :, None] & v2[..., None, :],
-                     l2sq_distance_matrix(d1, d2), torch.tensor(BIG, device=cuda))
+def _first_valid(v):
+    """Index of each pair's first True (P,), 0 where none."""
+    return torch.argmax(v.to(torch.int32), dim=-1)
+
+
+def _masked_l2(cuda, d1, d2, v1, v2):
+    return torch.where(v1[..., :, None] & v2[..., None, :],
+                       l2sq_distance_matrix(d1, d2),
+                       torch.tensor(BIG, device=cuda))
+
+
+@pytest.mark.parametrize("p,n1,n2,kind", L2_CASES, ids=L2_IDS)
+def test_match_l2_kernel_matches_plain(cuda, p, n1, n2, kind):
+    """K7 against its plain version: distances within 1e-5, index
+    differences only on near-ties (`near_tie_ok`), canonical outputs of
+    invalid rows and columns, one launch; exact ties go to the lowest
+    index."""
+    d1, d2, v1, v2 = _float_descriptors(cuda, n1 + 7 * n2, p, n1, n2, kind)
+    Dm = _masked_l2(cuda, d1, d2, v1, v2)
+    n0 = kernels.LAUNCHES["match_l2"]
     k = mutual_nn_l2(d1, d2, v1, v2)
-    p = mutual_nn_l2_plain(d1, d2, v1, v2)
+    assert kernels.LAUNCHES["match_l2"] == n0 + 1
+    pl = mutual_nn_l2_plain(d1, d2, v1, v2)
     assert k[1].dtype == torch.int32 and k[0].dtype == torch.float32
-    assert float((k[0] - p[0])[v1].abs().max()) <= 1e-5
+    if bool(v1.any()):
+        assert float((k[0] - pl[0])[v1].abs().max()) <= 1e-5
     assert (k[0][~v1] == BIG).all() and (k[1][~v1] == 0).all()
     assert (k[2][~v2] == 0).all()
-    assert near_tie_ok(argmin_mismatches(Dm, k[1], p[1], v1, -1))
-    assert near_tie_ok(argmin_mismatches(Dm, k[2], p[2], v2, -2))
+    rows = v1 & (pl[0] < BIG)
+    cols = v2 & (Dm.min(dim=-2).values < BIG)
+    assert near_tie_ok(argmin_mismatches(Dm, k[1], pl[1], rows, -1))
+    assert near_tie_ok(argmin_mismatches(Dm, k[2], pl[2], cols, -2))
+    if kind == "identical":
+        first2 = _first_valid(v2)[:, None].expand_as(k[1])
+        first1 = _first_valid(v1)[:, None].expand_as(k[2])
+        assert torch.equal(k[1][rows], first2[rows].to(torch.int32))
+        assert torch.equal(k[2][cols], first1[cols].to(torch.int32))
 
 
-@pytest.mark.parametrize("n1,n2", [(512, 512), (300, 457)])
-def test_row_top2_l2_kernel_matches_plain(cuda, n1, n2):
-    d1, d2, v1, v2 = _float_descriptors(cuda, n1 + 5 * n2, n1, n2)
-    Dm = torch.where(v1[..., :, None] & v2[..., None, :],
-                     l2sq_distance_matrix(d1, d2), torch.tensor(BIG, device=cuda))
+@pytest.mark.parametrize("p,n1,n2,kind", L2_CASES, ids=L2_IDS)
+def test_row_top2_l2_kernel_matches_plain(cuda, p, n1, n2, kind):
+    """K6-L2 against its plain version: d1 and d2 within 1e-5, index
+    differences only on near-ties, (_BIG, 0, _BIG) for invalid rows, one
+    launch; an exact tie gives the lowest index and d2 == d1."""
+    d1, d2, v1, v2 = _float_descriptors(cuda, n1 + 5 * n2, p, n1, n2, kind)
+    Dm = _masked_l2(cuda, d1, d2, v1, v2)
+    n0 = kernels.LAUNCHES["row_top2_l2"]
     k = row_top2(d1, d2, v1, v2, "l2")
-    p = row_top2_plain(d1, d2, v1, v2, "l2")
-    for a, b in ((k[0], p[0]), (k[2], p[2])):
-        assert float((a - b)[v1].abs().max()) <= 1e-5
+    assert kernels.LAUNCHES["row_top2_l2"] == n0 + 1
+    pl = row_top2_plain(d1, d2, v1, v2, "l2")
+    for a, b in ((k[0], pl[0]), (k[2], pl[2])):
+        if bool(v1.any()):
+            assert float((a - b)[v1].abs().max()) <= 1e-5
         assert (a[~v1] == BIG).all()
     assert (k[1][~v1] == 0).all()
-    assert near_tie_ok(argmin_mismatches(Dm, k[1], p[1], v1, -1))
+    rows = v1 & (pl[0] < BIG)
+    assert near_tie_ok(argmin_mismatches(Dm, k[1], pl[1], rows, -1))
+    if kind == "identical":
+        first2 = _first_valid(v2)[:, None].expand_as(k[1])
+        assert torch.equal(k[1][rows], first2[rows].to(torch.int32))
+        two = rows & (v2.sum(-1) >= 2)[:, None]
+        assert torch.equal(k[2][two], k[0][two])
 
 
 def test_five_point_kernel_roots(cuda):

@@ -7,7 +7,9 @@ reference's XLA formulation and its fused kernels in interpret mode.
 Hamming results are exact and held bit for bit. L2 results agree up to
 float32 reassociation of the dot products, so a match may resolve to the
 other side of a near-tie: such rows are counted and each must be a tie
-within 1e-5 in the reference's own distances."""
+within 1e-5 in the reference's own distances. The L2 kernels' split-TF32
+products, which cannot run here, are emulated (`_tf32_gram`) and held to
+that contract too."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -294,3 +296,99 @@ def test_hamming_kernels_refuse_wide_indices():
     for n1, n2 in ((n, 4), (4, n)):
         with pytest.raises(ValueError, match="k: at most 2097151"):
             tmatch.check_hamming_n("k", n1, n2)
+
+
+def test_l2_kernels_refuse_wide_shapes():
+    """K7/K6-L2 index slots with 32-bit ints and put the pair on the grid's
+    y axis: more than 65535 pairs, or 2^31 slots or more on a side over all
+    pairs, is refused before any launch; anything below passes."""
+    assert tmatch.L2_MAX_PAIRS == 65535 and tmatch.L2_MAX_SLOTS == 2**31 - 1
+    for p, n1, n2 in ((65535, 4, 4), (1, 2**31 - 1, 4), (2, 4, 2**30 - 1),
+                      (0, 0, 0)):
+        tmatch.check_l2_shape("k", p, n1, n2)
+    for p, n1, n2 in ((65536, 4, 4), (2, 2**30, 4), (1, 4, 2**31)):
+        with pytest.raises(ValueError, match="k: at most 65535 pairs"):
+            tmatch.check_l2_shape("k", p, n1, n2)
+
+
+def _tf32(x, rounded=True):
+    """float32 -> TF32 values held in float32: round to nearest, ties away
+    from zero (`cvt.rna.tf32.f32`), or the tensor cores' own reading of an
+    operand, which drops its low 13 bits."""
+    u = x.contiguous().view(torch.int32)
+    if rounded:
+        u = u + 0x1000
+    return (u & -0x2000).view(torch.float32)
+
+
+def _add_rz(acc, part):
+    """float32 acc + part (float64), rounded toward zero: how the tensor
+    cores round each k-step's sum (measured on the card)."""
+    t = acc.double() + part
+    r = t.float()
+    return torch.where(r.double().abs() > t.abs(),
+                       torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _tf32_gram(a, b, split):
+    """a (N1, 128) . b (N2, 128)^T as csrc/match_l2.cu computes it: each
+    operand read as the tensor cores read it (low 13 bits dropped); per
+    32-dimension stage, 8-dimension k-steps (exact products) summed in
+    float32 with truncation, cross products first; each stage's sum added
+    to the float32 result with rounding to nearest. split=True: the
+    kernel's hi + lo split of both operands (both parts rounded to nearest)
+    and hi.lo + lo.hi + hi.hi; split=False: one product of the rounded
+    operands (plain TF32)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if split:
+        prods = [(a_hi, _tf32(b - b_hi)), (_tf32(a - a_hi), b_hi),
+                 (a_hi, b_hi)]
+    else:
+        prods = [(a_hi, b_hi)]
+    dot = torch.zeros(a.shape[0], b.shape[0], dtype=torch.float32)
+    for k0 in range(0, a.shape[1], 32):
+        acc = torch.zeros_like(dot)
+        for x, y in prods:
+            for k in range(k0, k0 + 32, 8):
+                acc = _add_rz(acc, _tf32(x[:, k:k + 8], False).double()
+                              @ _tf32(y[:, k:k + 8], False).double().T)
+        dot = dot + acc
+    return dot
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["tf32x3", "tf32x1"])
+def test_split_tf32_products_hold_the_l2_contract(split):
+    """K7's and K6-L2's products emulated on the CPU (`_tf32_gram`), with
+    the kernel's norms (float64 sums rounded once) and distance
+    max((|a|^2 + |b|^2) - 2 a.b, 0), against their plain versions on
+    SIFT-like unit-norm descriptors with duplicates: the 3xTF32 split holds
+    the contract (index differences only on near-ties within 1e-5,
+    distances within 1e-5); one TF32 product breaks it."""
+    d1, d2, v1, v2 = (torch.from_numpy(a) for a in float_descriptors(
+        31, 384, 512, pairs=2, dup=True))
+
+    def sq(x):
+        return (x.double() ** 2).sum(-1).float()
+
+    D_emu = torch.stack([torch.clamp_min(
+        (sq(a)[:, None] + sq(b)[None, :]) - 2.0 * _tf32_gram(a, b, split),
+        0.0) for a, b in zip(d1, d2)])
+    D = torch.where(v1[..., :, None] & v2[..., None, :],
+                    tmatch.l2sq_distance_matrix(d1, d2), torch.tensor(_BIG))
+    got = tmatch.mutual_nn_from_matrix(D_emu, v1, v2)
+    want = tmatch.mutual_nn_l2_plain(d1, d2, v1, v2)
+    top2 = tmatch.row_top2_from_matrix(D_emu, v1, v2)
+    top2_want = tmatch.row_top2_plain(d1, d2, v1, v2, norm="l2")
+    err = max(float((got[0] - want[0])[v1].abs().max()),
+              float((top2[2] - top2_want[2])[v1].abs().max()))
+    ok = [tmatch.near_tie_ok(tmatch.argmin_mismatches(D, got[1], want[1],
+                                                      v1, -1)),
+          tmatch.near_tie_ok(tmatch.argmin_mismatches(D, got[2], want[2],
+                                                      v2, -2)),
+          tmatch.near_tie_ok(tmatch.argmin_mismatches(D, top2[1],
+                                                      top2_want[1], v1, -1))]
+    print(f"split={split}: distance error {err:.3e}, index contract {ok}")
+    if split:
+        assert err <= tmatch.NEAR_TIE_TOL and all(ok)
+    else:
+        assert err > tmatch.NEAR_TIE_TOL

@@ -144,13 +144,39 @@ def test_pose_estimator_api_and_failures(scene):
     assert bool(out["valid"]) and torch.equal(out["R"], torch.eye(3))
 
 
+def test_vp_estimator_without_R_prev_is_the_plain_pose(scene):
+    """The reference applies VP only when R_prev is given
+    (rpe_tpu/pipeline/estimator.py:328), and its single-pair runner never
+    passes it: the VP-on estimator returns the VP-off estimator's output,
+    with vp_used=False."""
+    frames, K, _, _ = scene
+    _, tc = _cfgs()
+    kw = dict(nfeatures=256, max_matches=128, config=tc, device="cpu",
+              seed=3)
+    off = test_.PoseEstimator(K, **kw).estimate_with_debug(frames[0],
+                                                           frames[1])
+    on = test_.PoseEstimator(K, use_vp_refinement=True, **kw)
+    assert on.config.vp.enabled
+    got = on.estimate_with_debug(frames[0], frames[1])
+    assert got["vp_used"] is False and got["vp_debug"] == {}
+    assert got.keys() == off.keys()
+    for k in ("R", "t", "pts1", "pts2"):
+        np.testing.assert_array_equal(got[k], off[k], err_msg=k)
+    assert (got["num_matches"], got["inliers"]) == (off["num_matches"],
+                                                    off["inliers"])
+
+
 @pytest.mark.parametrize("change", ["orb_l2", "lo", "vp", "cv2_brief"])
 def test_unported_options_raise(monkeypatch, scene, change):
     frames, K, _, keys = scene
     _, tc = _cfgs()
     if change == "vp":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            test_.PoseEstimator(K, use_vp_refinement=True, device="cpu")
+        # VP refinement runs only with R_prev, as in the reference: the
+        # estimator constructs, and refuses the call that would run VP
+        est = test_.PoseEstimator(K, use_vp_refinement=True, device="cpu")
+        with pytest.raises(NotImplementedError,
+                           match='ROADMAP.md Queue 1, "VP refinement"'):
+            est.estimate_with_debug(frames[0], frames[1], R_prev=np.eye(3))
         return
     if change == "orb_l2":
         # ORB has no float descriptors: a clear ValueError, not a KeyError
