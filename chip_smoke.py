@@ -14,15 +14,18 @@ Phases (any failure exits non-zero before the final line):
      printing the ptxas resource lines;
   3. kernels: on a synthetic 1241x376 sequence (9 frames, made from a seed),
      each kernel against its plain version at the shapes one chunk of the
-     main paths gives it -- K1 on the 9 frames' (3200, 1280) atlases, K2,
+     main paths gives it -- K1 on the 9 frames' (3200, 1280) atlases (bit
+     for bit: the interior against the plain version, the whole image
+     against the plain version on the wrap-padded atlas), K2,
      K12 (binned BRIEF) and the patch kernels K8, K9, K10 on their real
      (100, 72) band tables, K3 and K6 (Hamming) on the 8 pairs' 4096 x 4096
      ORB descriptors, K7 and K6 (L2) on the 8 pairs' 4096 x 4096 x 128 SIFT
      descriptors, K4 on 8 x 256 hypotheses' coefficients and 2048 exact
      minimal problems, K5 (K4's brackets alone) on the latter -- with its
-     contract, its time (CUDA events, L2 flushed before each launch), the
-     plain version's time, a library call's time where one computes the
-     same function, and its bound on the H100;
+     contract, its time (CUDA events, L2 flushed before each launch; for
+     K1, K4 and K5 also the queued time per call of 20 calls back to
+     back), the plain version's time, a library call's time where one
+     computes the same function, and its bound on the H100;
   4. paths: `estimate_sequence_batched` on the 9 frames (8 pairs) at
      EstimatorConfig() (ORB, Hamming cross-check: K1-K4), SIFT with L2
      cross-check (config A: K7, K4), SIFT with the L2 Lowe ratio test
@@ -83,12 +86,8 @@ def main() -> None:
 
     import numpy as np
 
-    from rpe_tpu_torch import rng
     from rpe_tpu_torch.config import EstimatorConfig, MatcherConfig
     from rpe_tpu_torch.geometry import five_point as fp
-    from rpe_tpu_torch.geometry.epipolar import normalize_points
-    from rpe_tpu_torch.geometry.ransac import gather_points, \
-        sample_minimal_indices
     from rpe_tpu_torch.ops import extract as textract
     from rpe_tpu_torch.ops import kernels
     from rpe_tpu_torch.ops.atlas import band_tables
@@ -162,6 +161,22 @@ def main() -> None:
             tot += s.elapsed_time(e)
         return tot / iters
 
+    def queued_ms(fn, calls=20):
+        """CUDA-event time per call of `calls` calls queued back to back
+        (the host's launch work hides behind the card's)."""
+        fn()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(calls):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / calls
+
+    queued = {}
+
     def bound(nbytes, ops, rate):
         t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / rate
         return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
@@ -188,11 +203,26 @@ def main() -> None:
     rel = float(((a[fin] - b[fin]).abs() / (b[fin].abs() + 1e-3)).max()) \
         if bool(fin.any()) else 0.0
     blur_err = float((bk[:, m:-m, m:-m] - bp[:, m:-m, m:-m]).abs().max())
-    check("K1 fast_harris", same_set and rel < 1e-3 and blur_err < 1e-3,
-          f"{nf} atlases, corner set equal={same_set} ({int(fin.sum())} "
-          f"corners), "
-          f"harris max rel err {rel:.3e} (< 1e-3), blur max abs err "
-          f"{blur_err:.3e} (< 1e-3)")
+    # bit equality: the interior against the plain version, the whole image
+    # against the plain version run on the wrap-padded atlas (every stage
+    # wrapping at the edges, as the kernel's edge tiles do)
+    interior_eq = bool(torch.equal(a, b)
+                       and torch.equal(bk[:, m:-m, m:-m], bp[:, m:-m, m:-m]))
+    pad = torch.nn.functional.pad(atlas[:, None], (m,) * 4, mode="circular")
+    rw, bw = (x[:, m:-m, m:-m] for x in fast_harris_rank_map_plain(
+        pad[:, 0], o.fast_threshold))
+    whole_eq = bool(torch.equal(rk, rw) and torch.equal(bk, bw))
+    edge = int((rk != rp).sum() + (bk != bp).sum())
+    del pad, rw, bw
+    check("K1 fast_harris", interior_eq and whole_eq and same_set
+          and rel < 1e-3 and blur_err < 1e-3,
+          f"{nf} atlases, rank and blur bit-equal over the interior "
+          f"({m} px from the edges)={interior_eq} and over the whole image "
+          f"to the plain version on the wrap-padded atlas={whole_eq}; corner "
+          f"set equal={same_set} ({int(fin.sum())} corners), harris max rel "
+          f"err {rel:.3e} (< 1e-3), blur max abs err {blur_err:.3e} (< "
+          f"1e-3); {edge} edge-band values differ from the unpadded plain "
+          f"version (its zero and -inf padding)")
     px = nf * ha * wp
     b_ms, b_by = bound(3 * 4 * px, 180 * px, FP32_OPS_PER_S)
     rows["fast_harris"] = dict(
@@ -204,6 +234,8 @@ def main() -> None:
         plain_ms=cuda_ms(lambda: fast_harris_rank_map_plain(
             atlas, o.fast_threshold), iters=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    queued["fast_harris"] = queued_ms(
+        lambda: fast_harris_rank_map(atlas, o.fast_threshold))
 
     # K2 -- extraction + BRIEF on those frames' real band tables
     tb = band_tables(ha, wp, kp["xy_atlas"], kp["valid"], patch=PATCH,
@@ -322,8 +354,7 @@ def main() -> None:
 
     # detections of all 9 frames feed K3, K6-Hamming and K4 at main-path
     # shapes
-    from rpe_tpu_torch.pipeline.estimator import detect_features, \
-        match_features
+    from rpe_tpu_torch.pipeline.estimator import detect_features
     with torch.no_grad():
         dets = detect_features(imgs, cfg)
     npair = nf - 1
@@ -457,21 +488,7 @@ def main() -> None:
     del Dm, s1, s2, s2t, outk, outp
 
     # K4 -- 5-point roots on the coefficients of 8 pairs x 256 samples
-    with torch.no_grad():
-        d1 = {k: v[:-1] for k, v in dets.items()}
-        d2 = {k: v[1:] for k, v in dets.items()}
-        mt = match_features(d1, d2, cfg)
-        Kt = torch.from_numpy(K).to(dev)
-        p1 = normalize_points(torch.gather(
-            d1["xy"], 1, mt["idx1"][..., None].expand(-1, -1, 2)), Kt)
-        p2 = normalize_points(torch.gather(
-            d2["xy"], 1, mt["idx2"][..., None].expand(-1, -1, 2)), Kt)
-        keys = torch.stack([rng.PRNGKey(i, device=dev) for i in range(8)])
-        idx = sample_minimal_indices(keys, mt["valid"],
-                                     cfg.ransac.num_hypotheses, 5)
-        _, coeffs = fp.constraint_coeffs(gather_points(p1, idx),
-                                         gather_points(p2, idx))
-    coeffs = coeffs.reshape(-1, 10, 20).contiguous()
+    coeffs = _main_path_coeffs(torch, dets, cfg, K, dev)
     # K4 contract (tests/test_pallas_kernels.py:143-184) on (a) the
     # reference test's 9 noise-free minimal problems, (b) 2048 of them and
     # (c) the main path's coefficients: the kernel's roots solve the cubic
@@ -516,6 +533,8 @@ def main() -> None:
         max_abs_err=dz, ms=cuda_ms(lambda: fp.solve_roots_polished(coeffs)),
         plain_ms=cuda_ms(lambda: fp.solve_roots_plain(coeffs), iters=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    queued["five_point_roots"] = queued_ms(
+        lambda: fp.solve_roots_polished(coeffs))
 
     # K5 -- K4's brackets alone (contract: tests/test_pallas_kernels.py:
     # 92-140) on the reference test's 9 exact problems and on the 2048. The
@@ -559,14 +578,18 @@ def main() -> None:
         ms=cuda_ms(lambda: fp.find_root_brackets(c2048)),
         plain_ms=cuda_ms(lambda: fp.find_root_brackets_plain(c2048), iters=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    queued["root_brackets"] = queued_ms(lambda: fp.find_root_brackets(c2048))
     del flush
 
     for r in rows.values():
         lib = ("none: no single PyTorch call computes it"
                if r["library_ms"] is None else f"{r['library_ms']:.4f}")
-        say(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
-            f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; the kernel "
-            f"at {100 * r['bound_ms'] / r['ms']:.1f}% of it), library {lib} ms"
+        q = (f" (queued {queued[r['name']]:.4f} ms per call)"
+             if r["name"] in queued else "")
+        say(f"{r['name']}: kernel {r['ms']:.4f} ms{q}, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; the kernel at "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of it), library {lib} ms"
             f" ({card})")
 
     # ---- 4. paths ---------------------------------------------------------------
@@ -667,7 +690,8 @@ def main() -> None:
         fail("; ".join(failures))
     line = {"kernels": [rows[k] for k in kernels.KERNELS]}
     with open(OUT_DIR / "chip_smoke.json", "w") as f:
-        json.dump(dict(line, card=card, paths=summary), f, indent=1)
+        json.dump(dict(line, card=card, paths=summary, queued_ms=queued), f,
+                  indent=1)
     say(f"nvidia-smi: {card}")
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
@@ -855,6 +879,36 @@ def _profile_main_path(torch, np, estimate, cfgs, card):
             f.write("\n\n" + ka.table(sort_by="cpu_time_total", row_limit=30))
         for line in table.splitlines()[:14]:
             say(f"profile[{name}]| {line}")
+
+
+def _main_path_coeffs(torch, dets, cfg, K, dev):
+    """K4's input on the main path: the constraint coefficients (B * 256,
+    10, 20) of 256 minimal samples per pair of the ORB detections `dets`
+    (frames 0..B-1 against 1..B), Hamming cross-check matches and the
+    sampler's keys 0..B-1."""
+    from rpe_tpu_torch import rng
+    from rpe_tpu_torch.geometry import five_point as fp
+    from rpe_tpu_torch.geometry.epipolar import normalize_points
+    from rpe_tpu_torch.geometry.ransac import gather_points, \
+        sample_minimal_indices
+    from rpe_tpu_torch.pipeline.estimator import match_features
+
+    with torch.no_grad():
+        d1 = {k: v[:-1] for k, v in dets.items()}
+        d2 = {k: v[1:] for k, v in dets.items()}
+        mt = match_features(d1, d2, cfg)
+        Kt = torch.from_numpy(K).to(dev)
+        p1 = normalize_points(torch.gather(
+            d1["xy"], 1, mt["idx1"][..., None].expand(-1, -1, 2)), Kt)
+        p2 = normalize_points(torch.gather(
+            d2["xy"], 1, mt["idx2"][..., None].expand(-1, -1, 2)), Kt)
+        keys = torch.stack([rng.PRNGKey(i, device=dev)
+                            for i in range(d1["xy"].shape[0])])
+        idx = sample_minimal_indices(keys, mt["valid"],
+                                     cfg.ransac.num_hypotheses, 5)
+        _, coeffs = fp.constraint_coeffs(gather_points(p1, idx),
+                                         gather_points(p2, idx))
+    return coeffs.reshape(-1, 10, 20).contiguous()
 
 
 def _exact_minimal_coeffs(np, torch, fp, b, dev):

@@ -3,28 +3,36 @@
 // Replaces rpe_tpu/ops/five_point_pallas.py `solve_roots_polished`
 // (`_roots_kernel` + `_polish_kernel`), which held each of the 100 matrix
 // entries as its own (8, 128) register tile with the hypothesis batch in
-// sublanes and lanes. On this card the batch maps to threads instead:
-//   roots_kernel:  one thread per hypothesis. The 10 x 20 row-normalized
-//     coefficients (800 B) are staged in shared memory as [coef][thread], so
-//     a warp reads 32 consecutive words per coefficient. Per grid point the
-//     thread evaluates M(z) by Horner into registers, takes the sign of
-//     det M as the product of the pivot signs of an unrolled, unpivoted LU
-//     (no overflow at |z| ~ 1e3, where det M itself leaves float range),
-//     records the first 10 sign changes in grid order, then bisects each
-//     bracket 10 times.
+// sublanes and lanes. On this card:
+//   roots_kernel: one warp per hypothesis. Its 10 x 20 row-normalized
+//     coefficients (800 B) sit in shared memory, read by all lanes at once.
+//     The 32 lanes evaluate the sign of det M(z) at the 97 grid points (3
+//     each, lane 0 a fourth): M(z) by Horner into registers, the sign as
+//     the product of the pivot signs of an unrolled, unpivoted LU (no
+//     overflow at |z| ~ 1e3, where det M itself leaves float range). A
+//     ballot of the sign changes gives the first 10 brackets in
+//     grid order. The brackets are then bisected together: each round
+//     gives every bracket a group of 2^L - 1 lanes (L = 5, 4, 3 or 2 levels
+//     for 1, 2, 3-4 or 5-10 brackets) that evaluate the nodes of an L-level
+//     bisection tree -- each node's midpoint computed by the same sequence
+//     of 0.5f * (a + b) the sequential bisection would take to reach it --
+//     and the group walks the tree with the nodes' signs. The 10 levels
+//     take 2-5 rounds instead of 10 and end on the sequential endpoints.
 //   polish_kernel: one thread per (hypothesis, root). It picks the affine
 //     chart or the projective chart w = 1/z by |z|, takes the null vector
 //     of M from back-substitution on its unpivoted LU (v9 = 1), clips x, y
 //     to +-1e6, and runs 4 Gauss-Newton steps on the 10 cubic constraints.
+//     It is ~3% of K4's device time (PERF.md), so it keeps this form.
 // Both kernels come from one launcher: one launch of K4 per call.
 // K5, rpe_tpu/ops/five_point_pallas.py `find_root_brackets` (its
 // `_roots_kernel` alone), is roots_kernel from a launcher of its own.
 //
 // Bound on this card: operations. ~1.4e5 float operations per hypothesis
-// (97 + 100 determinant evaluations of ~700 operations) and ~2e4 per root
-// for the polish, against 800 B of input per hypothesis. The design keeps
-// the 10 x 10 matrix in registers (fully unrolled loops with constant
-// indices) and the coefficients in shared memory or L1.
+// (97 + 100 determinant evaluations of ~835 operations; the tree
+// evaluates some nodes off the final path, spending idle lanes to cut the
+// serial depth from 197 to 6-9 evaluations) and ~2e4 per root for the
+// polish, against 800 B of input per hypothesis. The 10 x 10 matrix stays
+// in registers (fully unrolled loops with constant indices).
 //
 // Tables: the monomial order, hidden-variable groups and chart flip are
 // those of geometry/five_point.py; `five_point_tables` exports them so the
@@ -38,7 +46,7 @@
 #define NR 10            // MAX_ROOTS
 #define GRIDN 97
 #define BISECT 10
-#define HYP_PER_BLOCK 32
+#define WARPS 4          // hypotheses (warps) per block of roots_kernel
 #define EPS 1e-20f
 
 // Static tables as constexpr functions, so fully unrolled loops fold them.
@@ -73,17 +81,17 @@ __device__ __forceinline__ float sgnf(float v) {
     return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
 }
 
-// sign of det M(z), coefficients at s[k * HYP_PER_BLOCK] (k = e * 20 + m)
-__device__ __noinline__ float det_sign(const float* s, float z) {
+// sign of det M(z), coefficients c[e * 20 + m]
+__device__ __forceinline__ float det_sign(const float* c, float z) {
     float M[10][10];
 #pragma unroll
     for (int e = 0; e < 10; ++e)
 #pragma unroll
         for (int g = 0; g < 10; ++g) {
-            float v = s[(e * 20 + group_mono(g, max_z(g))) * HYP_PER_BLOCK];
+            float v = c[e * 20 + group_mono(g, max_z(g))];
 #pragma unroll
             for (int k = max_z(g) - 1; k >= 0; --k)
-                v = v * z + s[(e * 20 + group_mono(g, k)) * HYP_PER_BLOCK];
+                v = v * z + c[e * 20 + group_mono(g, k)];
             M[e][g] = v;
         }
     float sign = 1.f;
@@ -102,56 +110,136 @@ __device__ __noinline__ float det_sign(const float* s, float z) {
     return sign * sgnf(M[9][9]);
 }
 
-__global__ void __launch_bounds__(HYP_PER_BLOCK)
+// Position of the n-th set bit (1-based) of the 96-bit mask
+// m0 | m1 << 32 | m2 << 64; n <= its popcount.
+__device__ __forceinline__ int nth_change(unsigned m0, unsigned m1, unsigned m2,
+                                          int n) {
+    int base = 0;
+    unsigned m = m0;
+    if (n > __popc(m0)) {
+        n -= __popc(m0);
+        base = 32;
+        m = m1;
+        if (n > __popc(m1)) {
+            n -= __popc(m1);
+            base = 64;
+            m = m2;
+        }
+    }
+    for (int k = 1; k < n; ++k) m &= m - 1;   // clear the n - 1 lowest
+    return base + __ffs(m) - 1;
+}
+
+__global__ void __launch_bounds__(WARPS * 32, 4)
 roots_kernel(const float* __restrict__ coeffs, const float* __restrict__ tgrid,
              float* __restrict__ brackets, int B) {
-    __shared__ float s_c[200 * HYP_PER_BLOCK];
-    __shared__ float s_t[GRIDN];
-    const int tid = threadIdx.x;
-    const int h0 = blockIdx.x * HYP_PER_BLOCK;
-    for (int i = tid; i < 200 * HYP_PER_BLOCK; i += HYP_PER_BLOCK) {
-        int hh = i / 200, k = i % 200;
-        s_c[k * HYP_PER_BLOCK + hh] =
-            (h0 + hh) < B ? coeffs[(size_t)(h0 + hh) * 200 + k] : 0.f;
-    }
-    for (int i = tid; i < GRIDN; i += HYP_PER_BLOCK) s_t[i] = tgrid[i];
-    __syncthreads();
-    const int h = h0 + tid;
-    if (h >= B) return;
-    const float* s = s_c + tid;
+    __shared__ float s_c[WARPS][200];
+    __shared__ float s_br[WARPS][3][NR];   // t_lo, t_hi, sign at t_lo
+    const unsigned full = 0xffffffffu;
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int h = blockIdx.x * WARPS + w;
+    if (h >= B) return;                    // whole warps only
+    for (int i = lane; i < 200; i += 32) s_c[w][i] = coeffs[(size_t)h * 200 + i];
+    __syncwarp();
+    const float* c = s_c[w];
 
-    float lo[NR], hi[NR], slo[NR];
-    int cnt = 0;
-    float s_prev = det_sign(s, tanf(s_t[0]));
-    for (int g = 0; g < GRIDN - 1; ++g) {
-        float s_next = det_sign(s, tanf(s_t[g + 1]));
-        if (s_prev * s_next < 0.f && cnt < NR) {
-#pragma unroll
-            for (int r = 0; r < NR; ++r)
-                if (r == cnt) { lo[r] = s_t[g]; hi[r] = s_t[g + 1]; slo[r] = s_prev; }
-            ++cnt;
-        }
-        s_prev = s_next;
+    // grid: lane l takes points l, 32 + l, 64 + l; lane 0 also point 96
+    float sg[3], s96 = 0.f;
+#pragma unroll 1
+    for (int r = 0; r < 4; ++r) {
+        const int p = 32 * r + lane;
+        const float sv = p < GRIDN ? det_sign(c, tanf(__ldg(tgrid + p))) : 0.f;
+        if (r == 0) sg[0] = sv;
+        else if (r == 1) sg[1] = sv;
+        else if (r == 2) sg[2] = sv;
+        else s96 = sv;
     }
-    float* out = brackets + (size_t)h * 3 * NR;
-#pragma unroll
-    for (int r = 0; r < NR; ++r) {
-        if (r < cnt) {
-            float a = lo[r], b = hi[r], sa = slo[r];
-            for (int it = 0; it < BISECT; ++it) {
-                float mid = 0.5f * (a + b);
-                float sm = det_sign(s, tanf(mid));
-                bool same = sm * sa >= 0.f;
-                if (same) { a = mid; sa = sm; } else { b = mid; }
-            }
-            out[r] = a;
-            out[NR + r] = b;
-            out[2 * NR + r] = 1.f;
-        } else {
-            out[r] = 0.f;
-            out[NR + r] = 0.f;
-            out[2 * NR + r] = 0.f;
+    // interval g = 32 r + lane changes sign between points g and g + 1
+    const float first1 = __shfl_sync(full, sg[1], 0);
+    const float first2 = __shfl_sync(full, sg[2], 0);
+    const float last = __shfl_sync(full, s96, 0);
+    float nxt[3];
+    nxt[0] = __shfl_down_sync(full, sg[0], 1);
+    nxt[1] = __shfl_down_sync(full, sg[1], 1);
+    nxt[2] = __shfl_down_sync(full, sg[2], 1);
+    if (lane == 31) {
+        nxt[0] = first1;
+        nxt[1] = first2;
+        nxt[2] = last;
+    }
+    const unsigned m0 = __ballot_sync(full, sg[0] * nxt[0] < 0.f);
+    const unsigned m1 = __ballot_sync(full, sg[1] * nxt[1] < 0.f);
+    const unsigned m2 = __ballot_sync(full, sg[2] * nxt[2] < 0.f);
+    const int cnt = min(__popc(m0) + __popc(m1) + __popc(m2), NR);
+
+    // lane b < cnt sets up bracket b: its grid interval and the sign at t_lo
+    {
+        const int g = lane < cnt ? nth_change(m0, m1, m2, lane + 1) : 0;
+        const float s0 = __shfl_sync(full, sg[0], g & 31);
+        const float s1 = __shfl_sync(full, sg[1], g & 31);
+        const float s2 = __shfl_sync(full, sg[2], g & 31);
+        if (lane < cnt) {
+            s_br[w][0][lane] = __ldg(tgrid + g);
+            s_br[w][1][lane] = __ldg(tgrid + g + 1);
+            s_br[w][2][lane] = g < 32 ? s0 : (g < 64 ? s1 : s2);
         }
+    }
+    __syncwarp();
+
+    // bisection, L levels per round (warp-uniform control flow)
+#pragma unroll 1
+    for (int done = 0; cnt > 0 && done < BISECT;) {
+        int L = cnt == 1 ? 5 : (cnt == 2 ? 4 : (cnt <= 4 ? 3 : 2));
+        L = min(L, BISECT - done);
+        const int G = (1 << L) - 1;            // lanes (tree nodes) per bracket
+        const int b = lane / G, node = lane % G + 1;   // heap index 1..G
+        const bool act = b < cnt;
+        float a = 0.f, bb = 0.f, sa = 0.f;
+        if (act) {
+            a = s_br[w][0][b];
+            bb = s_br[w][1][b];
+            sa = s_br[w][2][b];
+        }
+        // this lane's node: descend from the root along node's bits
+        float na = a, nb = bb;
+        const int depth = 31 - __clz(node);
+#pragma unroll 1
+        for (int lv = depth - 1; lv >= 0; --lv) {
+            const float mid = 0.5f * (na + nb);
+            if ((node >> lv) & 1) na = mid; else nb = mid;
+        }
+        float sm = 0.f;
+        if (act) sm = det_sign(c, tanf(0.5f * (na + nb)));
+        // walk the tree as the sequential bisection would
+        int at = 1;
+#pragma unroll 1
+        for (int lv = 0; lv < L; ++lv) {
+            const float mid = 0.5f * (a + bb);
+            const float s = __shfl_sync(full, sm, min(b * G + at - 1, 31));
+            if (s * sa >= 0.f) {
+                a = mid;
+                sa = s;
+                at = 2 * at + 1;
+            } else {
+                bb = mid;
+                at = 2 * at;
+            }
+        }
+        __syncwarp();
+        if (act && node == 1) {
+            s_br[w][0][b] = a;
+            s_br[w][1][b] = bb;
+            s_br[w][2][b] = sa;
+        }
+        __syncwarp();
+        done += L;
+    }
+    if (lane < NR) {
+        float* out = brackets + (size_t)h * 3 * NR;
+        const bool has = lane < cnt;
+        out[lane] = has ? s_br[w][0][lane] : 0.f;
+        out[NR + lane] = has ? s_br[w][1][lane] : 0.f;
+        out[2 * NR + lane] = has ? 1.f : 0.f;
     }
 }
 
@@ -273,8 +361,8 @@ extern "C" int five_point_roots_launch(const float* coeffs, const float* tgrid,
                                        void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (B <= 0) return 0;
-    roots_kernel<<<(B + HYP_PER_BLOCK - 1) / HYP_PER_BLOCK, HYP_PER_BLOCK, 0, s>>>(
-        coeffs, tgrid, brackets, B);
+    roots_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, 0, s>>>(coeffs, tgrid,
+                                                                brackets, B);
     int n = B * NR;
     polish_kernel<<<(n + 127) / 128, 128, 0, s>>>(coeffs, brackets, x, y, rv,
                                                   flip, has, B);
@@ -285,8 +373,8 @@ extern "C" int five_point_roots_launch(const float* coeffs, const float* tgrid,
 extern "C" int five_point_brackets_launch(const float* coeffs, const float* tgrid,
                                           float* brackets, int B, void* stream) {
     if (B <= 0) return 0;
-    roots_kernel<<<(B + HYP_PER_BLOCK - 1) / HYP_PER_BLOCK, HYP_PER_BLOCK, 0,
-                   (cudaStream_t)stream>>>(coeffs, tgrid, brackets, B);
+    roots_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, 0, (cudaStream_t)stream>>>(
+        coeffs, tgrid, brackets, B);
     return (int)cudaGetLastError();
 }
 

@@ -21,6 +21,8 @@ import functools
 import numpy as np
 import torch
 
+from ..ops import kernels
+
 _EPS = 1e-20
 
 GRID = 97           # tan-spaced determinant evaluation points
@@ -292,19 +294,15 @@ def find_root_brackets(coeffs):
     csrc/five_point_roots.cu; CPU tensors take the plain version."""
     if coeffs.device.type == "cpu":
         return find_root_brackets_plain(coeffs)
-    from ..ops import kernels
-
-    lib, tgrid = _roots_kernel_inputs("find_root_brackets", coeffs)
+    launch = _launchers("find_root_brackets", coeffs)[1]
     b = coeffs.shape[0]
     brackets = torch.empty((b, 3, MAX_ROOTS), dtype=torch.float32,
                            device=coeffs.device)
-    fn = lib.five_point_brackets_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(*(kernels.ptr(t) for t in (coeffs, tgrid, brackets)), b,
-            kernels.stream_ptr(coeffs))
+    rc = launch(kernels.ptr(coeffs), kernels.ptr(_device_tan_grid(
+        coeffs.device)), kernels.ptr(brackets), b, kernels.stream_ptr(coeffs))
     kernels.check("root_brackets", rc)
-    return brackets[:, 0], brackets[:, 1], brackets[:, 2] > 0.5
+    t_lo, t_hi, has = brackets.unbind(1)
+    return t_lo, t_hi, has > 0.5
 
 
 def solve_roots_plain(coeffs):
@@ -353,46 +351,46 @@ def solve_roots_polished(coeffs):
     """
     if coeffs.device.type == "cpu":
         return solve_roots_plain(coeffs)
-    from ..ops import kernels
-
-    lib, tgrid = _roots_kernel_inputs("solve_roots_polished", coeffs)
+    launch = _launchers("solve_roots_polished", coeffs)[0]
     b = coeffs.shape[0]
-    dev = coeffs.device
-    outs = [torch.empty((b, MAX_ROOTS), dtype=torch.float32, device=dev)
-            for _ in range(3)]
-    flip = torch.empty((b, MAX_ROOTS), dtype=torch.bool, device=dev)
-    has = torch.empty((b, MAX_ROOTS), dtype=torch.bool, device=dev)
-    brackets = torch.empty((b, 3, MAX_ROOTS), dtype=torch.float32,
-                           device=dev)
-    fn = lib.five_point_roots_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(*(kernels.ptr(t) for t in (coeffs, tgrid, brackets, *outs, flip,
-                                        has)),
-            b, kernels.stream_ptr(coeffs))
+    n = b * MAX_ROOTS
+    # one float buffer: the brackets (B, 3, MAX_ROOTS) the polish reads,
+    # then x, y, r_var; one bool buffer: flip, has_root
+    f32 = torch.empty((6, b, MAX_ROOTS), dtype=torch.float32,
+                      device=coeffs.device)
+    flags = torch.empty((2, b, MAX_ROOTS), dtype=torch.bool,
+                        device=coeffs.device)
+    p, q = kernels.ptr(f32), kernels.ptr(flags)
+    rc = launch(kernels.ptr(coeffs), kernels.ptr(_device_tan_grid(
+        coeffs.device)), p, p + 12 * n, p + 16 * n, p + 20 * n, q, q + n, b,
+        kernels.stream_ptr(coeffs))
     kernels.check("five_point_roots", rc)
-    return outs[0], outs[1], outs[2], flip, has
+    _, _, _, x, y, r_var = f32.unbind(0)
+    flip, has = flags.unbind(0)
+    return x, y, r_var, flip, has
 
 
-def _roots_kernel_inputs(name, coeffs):
-    """K4's and K5's preconditions: coeffs (B, 10, 20) float32, contiguous
-    on a CUDA device. Returns the loaded library, its tables checked, and
-    the tan grid on the card."""
+def _launchers(name, coeffs):
+    """K4's and K5's preconditions -- coeffs (B, 10, 20) float32, contiguous
+    on a CUDA device -- and their launchers."""
     if coeffs.dim() != 3 or coeffs.shape[1:] != (10, 20) \
             or coeffs.dtype != torch.float32:
         raise ValueError(f"{name}: want (B, 10, 20) float32")
-    from ..ops import kernels
-
     kernels.require_cuda(name, coeffs=coeffs)
-    lib = kernels.lib("five_point_roots")
-    _check_kernel_tables(lib)
-    return lib, _t(_tan_grid(), coeffs)
+    return _lib_launchers(kernels.lib("five_point_roots"))
 
 
 @functools.lru_cache(maxsize=None)
-def _check_kernel_tables(lib):
-    """The kernel hard-codes the monomial tables; hold them to these (once
-    per loaded library)."""
+def _device_tan_grid(device):
+    """The tan grid on the card, copied there once per device."""
+    return torch.from_numpy(_tan_grid()).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_launchers(lib):
+    """The library's K4 and K5 launchers with their argument types set,
+    once per loaded library, after holding the kernel's hard-coded
+    monomial tables to these."""
     gm, flip, exps = _kernel_tables()
     buf = (ctypes.c_int * (40 + 20 + 60))()
     lib.five_point_tables(buf)
@@ -401,6 +399,14 @@ def _check_kernel_tables(lib):
     if not np.array_equal(got, want):
         raise RuntimeError("five_point_roots.cu monomial tables disagree with "
                            "geometry/five_point.py")
+    roots = lib.five_point_roots_launch
+    roots.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
+    roots.restype = ctypes.c_int
+    brackets = lib.five_point_brackets_launch
+    brackets.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int,
+                                                 ctypes.c_void_p]
+    brackets.restype = ctypes.c_int
+    return roots, brackets
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@ which choose the ORB extraction route (ops/extract.py `extract_route`).
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import numpy as np
@@ -119,6 +120,10 @@ def fast_harris_rank_map_plain(img, threshold: float = 15.0,
     return rank, gaussian_blur_rolled(img)
 
 
+# the kernel's Gaussian taps, passed by reference to every launch
+_GAUSS7 = (ctypes.c_float * 7)(*gaussian_weights())
+
+
 def fast_harris_rank_map(img, threshold: float = 15.0,
                          k_harris: float = 0.04):
     """K1: rank map (Harris response where a FAST-9 corner survives 3x3
@@ -141,14 +146,24 @@ def fast_harris_rank_map(img, threshold: float = 15.0,
     f, h, w = img.shape
     if h < 9 or w < 9:
         raise ValueError("fast_harris_rank_map: image smaller than 9x9")
+    if not threshold >= 0.0:
+        # the kernel takes the bright and dark masks as exclusive
+        raise ValueError("fast_harris_rank_map: threshold must be >= 0")
     rank = torch.empty_like(img)
     blur = torch.empty_like(img)
-    g = (ctypes.c_float * 7)(*gaussian_weights())
-    fn = kernels.lib("fast_harris").fast_harris_launch
+    rc = _launcher(kernels.lib("fast_harris"))(
+        kernels.ptr(img), kernels.ptr(rank), kernels.ptr(blur), f, h, w,
+        float(threshold), float(k_harris), _GAUSS7, kernels.stream_ptr(img))
+    kernels.check("fast_harris", rc)
+    return rank, blur
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(lib):
+    """The library's launcher with its argument types set (once per loaded
+    library)."""
+    fn = lib.fast_harris_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(kernels.ptr(img), kernels.ptr(rank), kernels.ptr(blur), f, h, w,
-            float(threshold), float(k_harris), g, kernels.stream_ptr(img))
-    kernels.check("fast_harris", rc)
-    return rank, blur
+    return fn

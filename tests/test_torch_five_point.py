@@ -97,3 +97,76 @@ def test_root_contract_against_fused_reference_kernel():
         if _residual_ok(c64[b], px[b, r], py[b, r], pr[b, r], pf[b, r]):
             tol = 1e-3 * max(1.0, abs(zp[b, r]))
             assert (kh[b] & (np.abs(zk[b] - zp[b, r]) <= tol)).any(), (b, r)
+
+
+
+def _grid_brackets(c):
+    """The grid stage of `find_root_brackets_plain`, as it computes it:
+    (t_lo, t_hi, det M at t_lo, has_root), each (B, MAX_ROOTS)."""
+    from rpe_tpu_torch.ops.orb import top_k_stable
+
+    b = c.shape[0]
+    t = torch.from_numpy(tfp._tan_grid())
+    d = tfp._detM_at(c[:, None], torch.tan(t).expand(b, tfp.GRID))
+    change = (torch.sign(d[:, :-1]) * torch.sign(d[:, 1:])) < 0
+    score = torch.where(change, -torch.arange(tfp.GRID - 1,
+                                              dtype=torch.float32), -torch.inf)
+    _, idx = top_k_stable(score, tfp.MAX_ROOTS)
+    return t[idx], t[idx + 1], torch.gather(d, -1, idx), \
+        torch.gather(change, -1, idx)
+
+
+def _bisect_tree(c, lo, hi, d_lo, has, levels=None):
+    """The kernel's bisection rounds in float32: per hypothesis and round,
+    2^L - 1 lanes per bracket evaluate the nodes of an L-level tree (heap
+    order; each node's midpoint from the 0.5 * (a + b) sequence that
+    reaches it), then each bracket walks the tree with the nodes' signs. L
+    as the kernel picks it from the bracket count, or `levels` for every
+    round. Signs as `find_root_brackets_plain` takes them (det M of the
+    (B, MAX_ROOTS) midpoints, one call per node index)."""
+    n = has.sum(-1)
+    L0 = (torch.full_like(n, levels) if levels else torch.where(
+        n == 1, 5, torch.where(n == 2, 4, torch.where(n <= 4, 3, 2))))
+    sa = torch.sign(d_lo)
+    done = torch.zeros_like(n)
+    while bool((has.any(-1) & (done < tfp.BISECT_ITERS)).any()):
+        L = torch.minimum(L0, tfp.BISECT_ITERS - done)[:, None]
+        sign = torch.zeros((32,) + lo.shape)
+        for node in range(1, 32):
+            a, b = lo.clone(), hi.clone()
+            for lv in range(node.bit_length() - 2, -1, -1):
+                m = 0.5 * (a + b)
+                a, b = ((m, b) if (node >> lv) & 1 else (a, m))
+            sign[node] = torch.sign(tfp._detM_at(c[:, None],
+                                                 torch.tan(0.5 * (a + b))))
+        at = torch.ones_like(lo, dtype=torch.int64)
+        for lv in range(5):
+            go = has & (lv < L)
+            m = 0.5 * (lo + hi)
+            s = torch.gather(sign, 0, at[None])[0]
+            same = s * sa >= 0
+            lo = torch.where(go & same, m, lo)
+            sa = torch.where(go & same, s, sa)
+            hi = torch.where(go & ~same, m, hi)
+            at = torch.where(same, 2 * at + 1, 2 * at).clamp(max=31)
+        done = done + L[:, 0]
+    return torch.where(has, lo, 0.0), torch.where(has, hi, 0.0)
+
+
+@pytest.mark.parametrize("seed,b", [(5, 9), (11, 256)],
+                         ids=["reference-9", "seeded-256"])
+def test_bisection_tree_gives_the_sequential_endpoints(seed, b):
+    """K4/K5 bisect L levels per round (csrc/five_point_roots.cu): the
+    nodes of an L-level tree are evaluated together and the bracket then
+    walks it. In float32, with the signs `find_root_brackets_plain` sees,
+    that gives exactly its sequential endpoints, for the kernel's choice of
+    L and for every L from 1 to 5."""
+    p1, p2 = _minimal_problems(seed, b)
+    _, c = tfp.constraint_coeffs(torch.from_numpy(p1), torch.from_numpy(p2))
+    lo, hi, has = tfp.find_root_brackets_plain(c)
+    assert int(has.sum()) >= 3 * b
+    grid = _grid_brackets(c)
+    assert torch.equal(grid[3], has)
+    for levels in (None, 1, 2, 3, 4, 5):
+        tlo, thi = _bisect_tree(c, *grid, levels)
+        assert torch.equal(tlo, lo) and torch.equal(thi, hi), levels
