@@ -260,15 +260,27 @@ def main() -> None:
           f"{mom_ok} (max abs err {mom_err:.3e}), parked slots zero="
           f"{parked_zero}")
     n_live = int(live.sum())
-    # bytes: the atlas and blur pixels under some live slot's patch, each
-    # read once, the two tables, and the outputs (bits, m10, m01)
-    union_px = patch_union_px(torch, tb["tbl_x0"], tb["rel_y"], tb["band"],
-                              ha, wp, PATCH)
-    k2_bytes = (2 * 4 * union_px + 2 * 4 * nf * nb * cap
-                + nf * nb * cap * (256 + 8))
-    say(f"K2 bound: {union_px} of {px} atlas px under live patches")
-    k2_ops = n_live * (4 * PATCH * PATCH + 256 * 12)
-    b_ms, b_by = bound(k2_bytes, k2_ops, FP32_OPS_PER_S)
+    n_slots = nf * nb * cap
+    # Bytes: the pixels that some live slot needs, each read once -- of the
+    # raw atlas those under its IC mask; of the blurred atlas those its
+    # samples reach at this run's angles (K2, K12: the plain version's
+    # moments) or its whole patch (K8-K10) -- the slot tables, the static
+    # tables and the outputs. Operations: 4 per masked raw pixel (the
+    # moments), then the steering and the 256 comparisons per live slot.
+    feet = brief_footprints(torch, m10_p, m01_p, live)
+    raw_px, blur_px, k2_px, k12_px = (
+        union_px(torch, tb["tbl_x0"], tb["rel_y"], tb["band"], ha, wp,
+                 feet[k]) for k in ("ic", "whole", "k2", "k12"))
+    n_ic = int(feet["ic"].numel())
+    say(f"extraction bounds: of {px} px per atlas, {raw_px} raw px lie "
+        f"under live slots' IC masks ({n_ic} of {PATCH * PATCH} a patch); "
+        f"blurred px that live slots sample: K2 {k2_px}, K12 {k12_px}, "
+        f"under their whole patches {blur_px}")
+    slot_bytes = 2 * 4 * n_slots
+    brief_out = n_slots * (256 + 8)
+    b_ms, b_by = bound(4 * (raw_px + k2_px) + slot_bytes + 256 * 16
+                       + brief_out, n_live * (4 * n_ic + 256 * 12),
+                       FP32_OPS_PER_S)
     rows["extract_brief"] = dict(
         name="extract_brief", route="cuda",
         source="rpe_tpu_torch/csrc/extract_brief.cu",
@@ -277,14 +289,11 @@ def main() -> None:
         plain_ms=cuda_ms(lambda: extract_brief_plain(*args), iters=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    # K8, K9, K10 (patch kernels) and K12 (binned BRIEF) on the same tables.
-    # Bytes: the pixels under live patches of both atlases read once, the
-    # tables, the outputs; operations: the moments' 4 per raw pixel, K12's
-    # 30 bin dots and 256 comparisons per live slot.
-    n_slots = nf * nb * cap
-    read_bytes = 2 * 4 * union_px + 2 * 4 * n_slots
+    # K8, K9, K10 (patch kernels) and K12 (binned BRIEF) on the same tables:
+    # K8 reads both atlases' whole patches, K9 and K10 the raw pixels under
+    # the IC masks and the blurred whole patches
     patch_bytes = n_slots * PATCH * PATCH * 4
-    mom_ops = n_live * 4 * PATCH * PATCH
+    mom_ops = n_live * 4 * n_ic
     for kn, name, replaces, n_patches, ops in (
             (8, "extract_patches", 1088, 2, 0),
             (9, "extract_patches_moments", 129, 1, mom_ops),
@@ -311,9 +320,11 @@ def main() -> None:
         check(f"K{kn} {name}", ok and parked,
               f"{int(live.sum())} live of {n_slots} slots, {what}, parked "
               f"slots zero={parked}")
+        read_px = 2 * blur_px if n_patches == 2 else raw_px + blur_px
         out_bytes = n_patches * patch_bytes + (0 if n_patches == 2
                                                else 2 * 4 * n_slots)
-        b_ms, b_by = bound(read_bytes + out_bytes, ops, FP32_OPS_PER_S)
+        b_ms, b_by = bound(4 * read_px + slot_bytes + out_bytes, ops,
+                           FP32_OPS_PER_S)
         rows[name] = dict(
             name=name, route="cuda",
             source="rpe_tpu_torch/csrc/extract_patches.cu",
@@ -339,9 +350,9 @@ def main() -> None:
           f"{agree:.6f} (>= 0.999), moments allclose(rtol 1e-4, atol 2)="
           f"{mom_ok} (max abs err {mom_err:.3e}), parked slots zero="
           f"{parked_zero}")
-    b_ms, b_by = bound(read_bytes + n_slots * (256 + 8) + 30 * 512 * 4
-                       + 60 * 4, n_live * (4 * PATCH * PATCH + 30 * 3 + 256),
-                       FP32_OPS_PER_S)
+    b_ms, b_by = bound(4 * (raw_px + k12_px) + slot_bytes + 30 * 256 * 4
+                       + 60 * 4 + brief_out,
+                       n_live * (4 * n_ic + 30 * 3 + 256), FP32_OPS_PER_S)
     rows["extract_brief_binned"] = dict(
         name="extract_brief_binned", route="cuda",
         source="rpe_tpu_torch/csrc/extract_brief.cu",
@@ -715,24 +726,49 @@ def _gates(gates):
                 os.environ[k] = v
 
 
-def patch_union_px(torch, tbl_x0, rel_y, band, ha, wp, patch):
-    """Pixels of the (F, HA, WP) atlas covered by at least one live slot's
-    patch (rel_y >= 0; top-left at (b * band + rel_y, x0), clamped to the
-    atlas as the gather is)."""
+def brief_footprints(torch, m10, m01, live):
+    """Row-major patch indices that K2-K12 need of each live slot, given
+    the (F, S) moments and live mask: "whole" the patch (961,), "ic" the
+    IC mask's pixels (749,), "k2" (L, 512) the pattern rotated to each live
+    slot's angle atan2(m01, m10) and "k12" (L, 512) its steering bin's
+    samples, as the plain versions sample them."""
+    import numpy as np
+
+    from rpe_tpu_torch.ops.orb import PATCH, _ic_angle_masks, angle_bins, \
+        brief_bin_tables, steered_sample_index
+
+    dev = m10.device
+    ix, iy = brief_bin_tables()
+    k12 = torch.from_numpy((iy * PATCH + ix).astype(np.int64)).to(dev)
+    return dict(
+        whole=torch.arange(PATCH * PATCH, device=dev),
+        ic=torch.from_numpy(np.flatnonzero(_ic_angle_masks()[0])).to(dev),
+        k2=steered_sample_index(torch.atan2(m01, m10)[live]),
+        k12=k12[angle_bins(m10[live], m01[live]).long()])
+
+
+def union_px(torch, tbl_x0, rel_y, band, ha, wp, foot, patch=31, group=1):
+    """Pixels of the (F, HA, WP) atlas that at least one live slot reads
+    (rel_y >= 0; patch top-left at (b * band + rel_y, x0), clamped to the
+    atlas as the gather is). `foot` holds row-major patch indices
+    iy * patch + ix: (P,) read by every live slot, or (L, P), row l read by
+    the l-th live slot in (F, NB, CAP) order. With `group`, the runs of
+    `group` pixels of a row (WP % group == 0) that hold such a pixel."""
+    if wp % group:
+        raise ValueError(f"atlas width {wp} is not a multiple of {group}")
     f, nb, _ = tbl_x0.shape
+    dev = rel_y.device
     live = rel_y >= 0
-    y0 = (torch.arange(nb, device=rel_y.device)[None, :, None] * band
+    y0 = (torch.arange(nb, device=dev)[None, :, None] * band
           + rel_y.long())[live]
     x0 = tbl_x0.long()[live]
-    fr = torch.arange(f, device=rel_y.device)[:, None, None].expand_as(
-        live)[live]
-    pj = torch.arange(patch, device=rel_y.device)
-    rows = (y0[:, None] + pj).clamp(0, ha - 1)
-    cols = (x0[:, None] + pj).clamp(0, wp - 1)
-    flat = (fr[:, None, None] * ha + rows[:, :, None]) * wp + cols[:, None, :]
-    cover = torch.zeros(f * ha * wp, dtype=torch.bool, device=rel_y.device)
-    cover[flat.reshape(-1)] = True
-    return int(cover.sum())
+    fr = torch.arange(f, device=dev)[:, None, None].expand_as(live)[live]
+    foot = foot.long()
+    rows = (y0[:, None] + foot // patch).clamp(0, ha - 1)
+    cols = (x0[:, None] + foot % patch).clamp(0, wp - 1)
+    cover = torch.zeros(f * ha * wp, dtype=torch.bool, device=dev)
+    cover[((fr[:, None] * ha + rows) * wp + cols).reshape(-1)] = True
+    return int(cover.view(-1, group).any(1).sum())
 
 
 def _five_point_contract(np, fp, coeffs, kern, plain):

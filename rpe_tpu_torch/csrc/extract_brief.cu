@@ -1,40 +1,64 @@
-// K2: banded patch extraction + IC moments + steered BRIEF, one slot per block,
-// and K12, the same with the ORB paper's 30-bin steering (template BINNED).
+// K2: banded patch extraction + IC moments + steered BRIEF, one warp per
+// slot, and K12, the same with the ORB paper's 30-bin steering (template
+// BINNED).
 //
 // Replaces rpe_tpu/ops/extract_pallas.py `extract_windows_t_brief(quad=True)`
 // (`_extract_t_brief_kernel_quad` with `_brief_bits_from_patch`) and, binned,
 // `extract_windows_t_brief(binned=True)` (`_extract_t_brief_kernel_v7`). The TPU
 // kernel selected patch rows with one-hot MXU products because the TPU has
-// no fast gather; a GPU thread reads any address, so here each block loads
-// its slot's 31x31 raw and blurred patches straight from the two atlases into
-// shared memory, reduces the intensity-centroid moments m10/m01 over the
-// circular umax mask, normalises (m10, m01) into (cos, sin) of the angle,
-// and lets each of its 256 threads sample one rotated BRIEF pair.
+// no fast gather; a GPU thread reads any address, so here each warp reads
+// its slot's 31x31 raw and blurred patches straight from the two atlases.
 //
 // Slot tables follow rpe_tpu/ops/atlas.py `banded_extract`: the patch of slot
 // (b, s) has its top-left corner at (x0[b, s], b * band + rel_y[b, s]);
-// parked slots (rel_y < 0) output zero moments and all-zero bits.
+// parked slots (rel_y < 0) output zero moments and all-zero bits. Rows and
+// columns past the atlas clamp to its edge, as the plain version's gather.
 //
-// Bound on this card: bytes. A slot moves 2 x 961 floats in and 264 bytes
-// out for ~4k float operations. The blocks read patches directly (no window
-// materialisation, no one-hot operands), so device memory traffic is the
-// patches themselves; neighbouring slots overlap in rows, and those re-reads
-// hit L2.
+// Bound on this card: bytes. A slot needs at most the 749 raw pixels under
+// its IC mask and the blurred pixels its 512 samples reach, and writes 264
+// bytes, for ~4k float operations. A block-per-slot design (the first port)
+// ran at ~6x that bound: every block, parked ones included, went through
+// serial load rounds, three barriers and a serial reduction, so latency set
+// its time. This design removes the chain:
+//   - a warp per slot, 4 slots per block, no block-wide barrier; the grid
+//     is (CAP / 4, NB, F), so no division finds a slot's band or frame; a
+//     parked slot's warp writes its 256 zero bytes and two zeros and exits;
+//   - lane c owns patch column c and issues all of its loads before it uses
+//     any: the raw rows inside the IC mask (|u| <= umax[|v|]) into
+//     registers, the blurred rows by cp.async into shared memory (no
+//     registers held), neighbouring lanes on neighbouring addresses;
+//   - only the blurred pixels that a sample can reach are copied: the
+//     wrapper holds the pattern within radius SAMPLE_R = 13, so a rotated
+//     point rounds to |ix|, |iy| <= 13, and the two outer rows and columns
+//     on each side are never read (K2's clamp to them acts only on
+//     non-finite moments);
+//   - the raw patch never goes to shared memory: each lane folds its rows
+//     into m10, m01 with the exact weights u, v of its column and row (the
+//     products `mask * u`, `mask * v` of ops/orb.py `_ic_angle_masks`); a
+//     butterfly of shuffles then gives every lane the same sums (float
+//     addition commutes, so each pair of lanes adds the same two values);
+//   - each lane samples 8 of the 256 pairs (pairs lane * 8 + k) and stores
+//     its 8 result bytes as one 8-byte store, the warp's 256 bytes
+//     coalesced;
+//   - K12 picks the bin across the lanes: lane b < 30 forms
+//     m10 cos_b + m01 sin_b, a shuffle argmax keeps the largest and the
+//     lowest b among ties (zero or NaN moments give bin 0); the pairs of
+//     the bin come from a static table read as two coalesced 16-byte loads
+//     a lane;
+//   - at most 64 registers a thread, so 32 warps fit an SM.
+// What is left is most likely the traffic from L2: each live slot requests
+// its own rows, and patches overlap, so on the main path's chunk the
+// sectors requested are several times those holding a pixel some slot
+// needs (scripts/extract_breakdown.py counts both).
+// The pattern and K12's pair table are laid out by the wrapper
+// (ops/extract.py `_brief_tables`) so that each warp-wide load reads
+// consecutive addresses.
 //
-// Arithmetic: moments reduce in a fixed order (thread-strided partial sums,
-// then a warp tree, then the 8 warps in order). Rounding of the rotated
-// pattern is half-to-even (rintf) as jnp.round/torch.round; built with
-// -fmad=false so x cos - y sin rounds like the plain version's separate
-// products.
-//
-// K12 (BINNED): the v7 kernel batched 4 slots' samples through static one-hot
-// tables so the TPU's matrix unit could do the sampling. Here each thread
-// picks the bin itself -- the first b maximising m10 cos_b + m01 sin_b, each
-// product rounded and then summed (no FMA), as ops/orb.py `angle_bins` -- and
-// reads its pair's two sample indices from the static (30, 512) table
-// (row-major patch index iy * 31 + ix, column n = j * 256 + pair), which the
-// wrapper copies to the card once. Zero moments give bin 0; parked slots
-// give zero bits. Bound as K2.
+// Arithmetic: built with -fmad=false, so each product rounds before its
+// sum as in the plain version. The moments sum in another order than the
+// plain version's (lane rows in order, then the butterfly), within its
+// rtol 1e-4, atol 2 contract; steering is (cos, sin) = (m10, m01) / r with
+// IEEE sqrtf and division, rounding half-to-even as torch.round.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,128 +69,194 @@
 #define PATCH 31
 #define PATCH_R 15
 #define NPIX (PATCH * PATCH)
-#define NTHREADS 256
+#define SAMPLE_R 13           // rotated samples round to |ix|, |iy| <= 13
+#define WARPS 4
 #define NBINS 30
+#define FULL 0xffffffffu
 
+// OpenCV's IC_Angle extents: row v of the mask covers |u| <= kUmax[|v|]. The
+// wrapper holds them to ops/orb.py `_ic_angle_masks()`, and the BRIEF
+// pattern to SAMPLE_R, when it loads the library (extract_brief_layout).
+constexpr int kUmax[PATCH_R + 1] = {15, 15, 15, 15, 14, 14, 14, 13,
+                                    13, 12, 11, 10, 9,  8,  6,  3};
+
+constexpr unsigned long long pack_umax() {
+    unsigned long long p = 0;
+    for (int v = 0; v <= PATCH_R; ++v)
+        p |= (unsigned long long)kUmax[v] << (4 * v);
+    return p;
+}
+
+constexpr unsigned long long kUmaxBits = pack_umax();
+
+__device__ __forceinline__ int umax_of(int av) {
+    return (int)((kUmaxBits >> (4 * av)) & 15ull);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+}
+
+// Row-major patch index of the rotated pattern point (px, py), clamped to
+// the pixels copied (|ix|, |iy| <= SAMPLE_R): with finite moments
+// |(ca, sa)| <= 1 and the clamp never acts; it keeps non-finite ones
+// inside the copy.
+__device__ __forceinline__ int sample_index(float px, float py, float ca,
+                                            float sa) {
+    const float rx = px * ca - py * sa;
+    const float ry = px * sa + py * ca;
+    const int ix = min(max(__float2int_rn(rx), -SAMPLE_R), SAMPLE_R);
+    const int iy = min(max(__float2int_rn(ry), -SAMPLE_R), SAMPLE_R);
+    return (iy + PATCH_R) * PATCH + ix + PATCH_R;
+}
+
+// pat: float4 (x0, y0, x1, y1) of pair lane * 8 + k at [k * 32 + lane];
+// bin_pairs: uint4 at [(bin * 2 + h) * 32 + lane], component q the two
+// row-major sample indices iy * 31 + ix (low and high 16 bits) of pair
+// lane * 8 + h * 4 + q; bin_cs: the bins' cos (30) then sin (30).
+// Grid (CAP / WARPS, NB, F); tables and outputs in (F, NB, CAP) slot order.
 template <bool BINNED>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(WARPS * 32, 32 / WARPS)
 extract_brief_kernel(const float* __restrict__ atlas, const float* __restrict__ blur,
                      const int* __restrict__ tbl_x0, const int* __restrict__ rel_y,
-                     const float* __restrict__ mu, const float* __restrict__ mv,
-                     const float* __restrict__ pat, const int* __restrict__ bin_idx,
+                     const float4* __restrict__ pat, const uint4* __restrict__ bin_pairs,
                      const float* __restrict__ bin_cs, uint8_t* __restrict__ bits,
                      float* __restrict__ m10_out, float* __restrict__ m01_out,
-                     int HA, int WP, int NB, int CAP, int band) {
-    __shared__ float s_raw[NPIX];
-    __shared__ float s_blur[NPIX];
-    __shared__ float s_red[2][NTHREADS / 32];
-    __shared__ float s_m[2];
+                     int HA, int WP, int CAP, int band) {
+    __shared__ float s_blur[WARPS][NPIX];
 
-    const int tid = threadIdx.x;
-    const int slot = blockIdx.x;                 // b * CAP + s
-    const size_t so = (size_t)blockIdx.y * NB * CAP + slot;
+    const int lane = threadIdx.x & 31;
+    const int w = threadIdx.x >> 5;
+    const int s = blockIdx.x * WARPS + w;        // slot within its band
+    if (s >= CAP) return;
+    const int b = blockIdx.y;
+    const size_t so = ((size_t)blockIdx.z * gridDim.y + b) * CAP + s;
     const int ry = rel_y[so];
+    const int x0 = tbl_x0[so];
+    uint2* out = reinterpret_cast<uint2*>(bits + so * 256) + lane;
     if (ry < 0) {
-        bits[so * 256 + tid] = 0;
-        if (tid == 0) {
+        *out = make_uint2(0u, 0u);
+        if (lane == 0) {
             m10_out[so] = 0.f;
             m01_out[so] = 0.f;
         }
         return;
     }
-    const int y0 = (slot / CAP) * band + ry;
-    const int x0 = tbl_x0[so];
-    const size_t plane = (size_t)HA * WP;
-    const float* A = atlas + blockIdx.y * plane;
-    const float* Bl = blur + blockIdx.y * plane;
-    for (int i = tid; i < NPIX; i += NTHREADS) {
-        int r = i / PATCH, c = i % PATCH;
-        int y = y0 + r, x = x0 + c;
-        bool in = (y >= 0) && (y < HA) && (x >= 0) && (x < WP);
-        size_t o = (size_t)y * WP + x;
-        s_raw[i] = in ? A[o] : 0.f;
-        s_blur[i] = in ? Bl[o] : 0.f;
+    // Lane c loads column c of both patches, every load issued before any
+    // is used; rows and columns past the atlas clamp to its edge, as the
+    // plain version's gather. Raw: rows inside the IC mask, into
+    // registers (lane 31, u = 16, lies outside every mask row). Blurred: the
+    // rows and columns within SAMPLE_R of the centre, into shared memory.
+    const int y0 = b * band + ry;
+    const size_t col = (size_t)blockIdx.z * HA * WP
+                       + min(max(x0 + min(lane, PATCH - 1), 0), WP - 1);
+    const float* A = atlas + col;
+    const float* Bl = blur + col;
+    float* sb = s_blur[w];
+    const int u = lane - PATCH_R;
+    const int au = abs(u);
+    float raw[PATCH];
+#pragma unroll
+    for (int r = 0; r < PATCH; ++r) {
+        const size_t o = (size_t)min(max(y0 + r, 0), HA - 1) * WP;
+        if (abs(r - PATCH_R) <= SAMPLE_R && au <= SAMPLE_R)
+            cp_async4(sb + r * PATCH + lane, Bl + o);
+        raw[r] = au <= umax_of(abs(r - PATCH_R)) ? __ldg(A + o) : 0.f;
     }
-    __syncthreads();
-
-    float p10 = 0.f, p01 = 0.f;
-    for (int i = tid; i < NPIX; i += NTHREADS) {
-        p10 = p10 + s_raw[i] * mu[i];
-        p01 = p01 + s_raw[i] * mv[i];
+    const float fu = (float)u;
+    float m10 = 0.f, m01 = 0.f;
+#pragma unroll
+    for (int r = 0; r < PATCH; ++r) {
+        m10 = m10 + raw[r] * fu;
+        m01 = m01 + raw[r] * (float)(r - PATCH_R);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-        p10 = p10 + __shfl_down_sync(0xffffffffu, p10, off);
-        p01 = p01 + __shfl_down_sync(0xffffffffu, p01, off);
+        m10 = m10 + __shfl_xor_sync(FULL, m10, off);
+        m01 = m01 + __shfl_xor_sync(FULL, m01, off);
     }
-    if ((tid & 31) == 0) {
-        s_red[0][tid >> 5] = p10;
-        s_red[1][tid >> 5] = p01;
+    if (lane == 0) {
+        m10_out[so] = m10;
+        m01_out[so] = m01;
     }
-    __syncthreads();
-    if (tid == 0) {
-        float a = 0.f, b = 0.f;
-        for (int w = 0; w < NTHREADS / 32; ++w) {
-            a = a + s_red[0][w];
-            b = b + s_red[1][w];
-        }
-        s_m[0] = a;
-        s_m[1] = b;
-        m10_out[so] = a;
-        m01_out[so] = b;
-    }
-    __syncthreads();
-    const float m10 = s_m[0], m01 = s_m[1];
-    float v[2];
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncwarp();
+
+    unsigned word[2] = {0u, 0u};
     if (BINNED) {
-        int bin = 0;
-        float best = m10 * bin_cs[0] + m01 * bin_cs[NBINS];
-        for (int b = 1; b < NBINS; ++b) {
-            float d = m10 * bin_cs[b] + m01 * bin_cs[NBINS + b];
-            if (d > best) {
-                best = d;
-                bin = b;
+        // lanes past the bins start at bin 0, so every lane's bin stays a
+        // row of the table; lane 0's bin is the slot's (NaN moments take no
+        // compare and keep bin 0)
+        float d = -INFINITY;
+        int bin = lane < NBINS ? lane : 0;
+        if (lane < NBINS) d = m10 * bin_cs[lane] + m01 * bin_cs[NBINS + lane];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            const float od = __shfl_xor_sync(FULL, d, off);
+            const int ob = __shfl_xor_sync(FULL, bin, off);
+            if (od > d || (od == d && ob < bin)) {
+                d = od;
+                bin = ob;
             }
         }
-        v[0] = s_blur[bin_idx[bin * 512 + tid]];
-        v[1] = s_blur[bin_idx[bin * 512 + 256 + tid]];
+        bin = __shfl_sync(FULL, bin, 0);
+        const uint4* tp = bin_pairs + bin * 64 + lane;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const uint4 q = tp[h * 32];
+            const unsigned qs[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                const float v0 = sb[qs[k] & 0xffffu];
+                const float v1 = sb[qs[k] >> 16];
+                word[h] |= (v0 < v1 ? 1u : 0u) << (8 * k);
+            }
+        }
     } else {
         const float r = sqrtf(m10 * m10 + m01 * m01);
         const float ca = r > 0.f ? m10 / r : 1.f;
         const float sa = r > 0.f ? m01 / r : 0.f;
-        // pair tid: points (px0, py0) and (px1, py1)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            float px = pat[tid * 4 + 2 * j];
-            float py = pat[tid * 4 + 2 * j + 1];
-            float rx = px * ca - py * sa;
-            float ryf = px * sa + py * ca;
-            int ix = min(max((int)rintf(rx) + PATCH_R, 0), PATCH - 1);
-            int iy = min(max((int)rintf(ryf) + PATCH_R, 0), PATCH - 1);
-            v[j] = s_blur[iy * PATCH + ix];
+        for (int k = 0; k < 8; ++k) {
+            const float4 p = pat[k * 32 + lane];
+            const float v0 = sb[sample_index(p.x, p.y, ca, sa)];
+            const float v1 = sb[sample_index(p.z, p.w, ca, sa)];
+            word[k >> 2] |= (v0 < v1 ? 1u : 0u) << (8 * (k & 3));
         }
     }
-    bits[so * 256 + tid] = v[0] < v[1] ? 1 : 0;
+    *out = make_uint2(word[0], word[1]);
 }
 
-// binned: 0 launches K2, 1 launches K12 (bin_idx and bin_cs are read only then)
+// binned: 0 launches K2, 1 launches K12 (bin_pairs and bin_cs are read
+// only then, pat only for K2)
 extern "C" int extract_brief_launch(int binned, const float* atlas, const float* blur,
                                     const int* tbl_x0, const int* rel_y,
-                                    const float* mu, const float* mv,
-                                    const float* pat, const int* bin_idx,
+                                    const void* pat, const void* bin_pairs,
                                     const float* bin_cs, uint8_t* bits,
                                     float* m10, float* m01, int F, int HA,
                                     int WP, int NB, int CAP, int band,
                                     void* stream) {
-    dim3 grid(NB * CAP, F);
+    const dim3 grid((CAP + WARPS - 1) / WARPS, NB, F);
     cudaStream_t s = (cudaStream_t)stream;
+    const float4* p4 = (const float4*)pat;
+    const uint4* b4 = (const uint4*)bin_pairs;
     if (binned)
-        extract_brief_kernel<true><<<grid, NTHREADS, 0, s>>>(
-            atlas, blur, tbl_x0, rel_y, mu, mv, pat, bin_idx, bin_cs, bits, m10,
-            m01, HA, WP, NB, CAP, band);
+        extract_brief_kernel<true><<<grid, WARPS * 32, 0, s>>>(
+            atlas, blur, tbl_x0, rel_y, p4, b4, bin_cs, bits, m10, m01, HA, WP,
+            CAP, band);
     else
-        extract_brief_kernel<false><<<grid, NTHREADS, 0, s>>>(
-            atlas, blur, tbl_x0, rel_y, mu, mv, pat, bin_idx, bin_cs, bits, m10,
-            m01, HA, WP, NB, CAP, band);
+        extract_brief_kernel<false><<<grid, WARPS * 32, 0, s>>>(
+            atlas, blur, tbl_x0, rel_y, p4, b4, bin_cs, bits, m10, m01, HA, WP,
+            CAP, band);
     return (int)cudaGetLastError();
+}
+
+// What the wrapper's checks compare: the IC mask's extents umax[0..15], then
+// SAMPLE_R, the radius within which the pattern must lie.
+extern "C" void extract_brief_layout(int* out) {
+    for (int v = 0; v <= PATCH_R; ++v) out[v] = kUmax[v];
+    out[PATCH_R + 1] = SAMPLE_R;
 }

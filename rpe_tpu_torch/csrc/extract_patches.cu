@@ -11,8 +11,7 @@
 // one-hot matrix products over band windows (or a VMEM transpose) because
 // the TPU has no fast gather, and padded each patch to 32x32 lanes. A GPU
 // thread reads any address, so each block reads its slot's patch straight
-// from the two atlases (as K2 does) and writes it unpadded, (F, NB*CAP, 31,
-// 31) float32. K10 stages the blurred patch in shared memory (coalesced
+// from the two atlases and writes it unpadded, (F, NB*CAP, 31, 31) float32. K10 stages the blurred patch in shared memory (coalesced
 // reads) and writes it transposed from there (stride 31 is conflict-free).
 //
 // Slot tables follow rpe_tpu/ops/atlas.py `banded_extract`: the patch of slot
@@ -23,9 +22,10 @@
 // pixels only feed the moments) and writes 961 or 1922; ~4 operations per
 // raw pixel for the moments. Writing the patches dominates.
 //
-// Arithmetic: the moments reduce in K2's fixed order (thread-strided partial
-// sums, a warp tree, the 8 warps in order), built with -fmad=false like K2,
-// so K9 and K10 give K2's moments bit for bit and copies are exact.
+// Arithmetic: the moments reduce in a fixed order (thread-strided partial
+// sums, a warp tree, the 8 warps in order), built with -fmad=false, so K9
+// and K10 give the same moments and copies are exact; K2 sums in another
+// order (a lane per column), within the same contract.
 
 #include <cuda_runtime.h>
 

@@ -32,9 +32,9 @@ import torch
 
 from . import kernels
 from .fast import kernel_gate
-from .orb import PATCH, _ic_angle_masks, brief_bin_tables, \
-    brief_bin_vectors, brief_pattern, ic_moments, steered_brief, \
-    steered_brief_t_binned
+from .orb import N_BRIEF_BINS, PATCH, PATCH_R, _ic_angle_masks, \
+    brief_bin_tables, brief_bin_vectors, brief_pattern, ic_moments, \
+    steered_brief, steered_brief_t_binned
 
 
 def extract_route() -> str:
@@ -64,20 +64,84 @@ def extract_route() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _device_tables(dev: torch.device):
-    """The kernels' static tables on `dev`, copied there once: moment
-    weights mu, mv (961,) float32 (the IC mask times u, v), the BRIEF
-    pattern (1024,) float32 ((x0, y0, x1, y1) per pair), K12's sample
-    indices (30, 512) int32 (iy * 31 + ix into a row-major patch, j-major
-    columns as in `brief_bin_tables`) and its bin (cos, sin) (60,)."""
+def _moment_weights(dev: torch.device):
+    """K8-K10's moment weights mu, mv (961,) float32 on `dev`, copied there
+    once: the IC mask times u, v."""
     mask, us, vs = _ic_angle_masks()
+    return tuple(torch.from_numpy(np.ascontiguousarray((mask * w).reshape(-1)))
+                 .to(dev) for w in (us, vs))
+
+
+def _brief_tables_np():
+    """K2's and K12's static tables in csrc/extract_brief.cu's layouts, so
+    that each warp-wide load reads consecutive addresses (a lane samples
+    pairs lane * 8 + k, k < 8):
+      pat (256, 4) float32: (x0, y0, x1, y1) of pair lane * 8 + k at row
+        k * 32 + lane;
+      pairs (30, 2, 32, 4) int32: at [b, h, lane, q], the two row-major
+        sample indices iy * 31 + ix of pair lane * 8 + h * 4 + q at bin b
+        (`brief_bin_tables`), point 0 in the low and point 1 in the high 16
+        bits;
+      bin_cs (60,) float32: the bins' cos, then sin."""
+    pat = brief_pattern().astype(np.float32)
     ix, iy = brief_bin_tables()
-    arrays = ((mask * us).reshape(-1), (mask * vs).reshape(-1),
-              brief_pattern().astype(np.float32).reshape(-1),
-              (iy * PATCH + ix).astype(np.int32),
-              np.concatenate(brief_bin_vectors()))
+    idx = (iy * PATCH + ix).astype(np.int32)                  # (30, 512)
+    pairs = (idx[:, :256] | (idx[:, 256:] << 16)).reshape(
+        N_BRIEF_BINS, 32, 2, 4)
+    return (pat.reshape(32, 8, 4).transpose(1, 0, 2).reshape(256, 4),
+            pairs.transpose(0, 2, 1, 3), np.concatenate(brief_bin_vectors()))
+
+
+@functools.lru_cache(maxsize=None)
+def _brief_tables(dev: torch.device):
+    """`_brief_tables_np` on `dev`, copied there once."""
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                 for a in arrays)
+                 for a in _brief_tables_np())
+
+
+def ic_umax():
+    """The IC mask's half-widths umax[|v|], v = 0..15 (16,) int: row v of
+    `_ic_angle_masks()`'s mask covers |u| <= umax[|v|]."""
+    mask = _ic_angle_masks()[0]
+    return (mask[PATCH_R:].sum(axis=1).astype(np.int64) - 1) // 2
+
+
+@functools.lru_cache(maxsize=None)
+def _brief_launcher(lib):
+    """K2's and K12's launcher with its argument types set, once per loaded
+    library, after holding what the kernel hard-codes to what the port
+    computes: its IC mask extents to `ic_umax()`, and its sample radius
+    (the blurred pixels it copies, its unclamped K2 samples) to the BRIEF
+    pattern's."""
+    buf = (ctypes.c_int * (PATCH_R + 2))()
+    lib.extract_brief_layout(buf)
+    umax, sample_r = list(buf[:PATCH_R + 1]), buf[PATCH_R + 1]
+    if umax != ic_umax().tolist():
+        raise RuntimeError(f"extract_brief.cu umax {umax} disagrees with "
+                           f"ops/orb.py _ic_angle_masks() "
+                           f"{ic_umax().tolist()}")
+    reach = int((brief_pattern().astype(np.int64) ** 2).sum(-1).max())
+    if reach > sample_r ** 2:
+        raise RuntimeError(f"extract_brief.cu samples within radius "
+                           f"{sample_r}; the BRIEF pattern reaches radius "
+                           f"{reach ** 0.5:.2f}")
+    return _typed(lib.extract_brief_launch)
+
+
+@functools.lru_cache(maxsize=None)
+def _patch_launcher(lib):
+    """K8-K10's launcher with its argument types set, once per loaded
+    library."""
+    return _typed(lib.extract_patches_launch)
+
+
+def _typed(fn):
+    """Both sources' launchers take (mode, 10 pointers, F, HA, WP, NB, CAP,
+    band, stream) and return a cudaError_t."""
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def gather_slot_patches(img, tbl_x0, rel_y, band: int):
@@ -176,19 +240,23 @@ def extract_brief(atlas, blurred, tbl_x0, rel_y, band: int,
     if atlas.device.type == "cpu":
         return extract_brief_plain(atlas, blurred, tbl_x0, rel_y, band,
                                    binned)
+    return _launch_brief(kernels.lib("extract_brief"), atlas, blurred, tbl_x0,
+                         rel_y, band, binned)
+
+
+def _launch_brief(lib, atlas, blurred, tbl_x0, rel_y, band, binned):
+    """K2 (K12 with `binned`) launched from `lib`, a build of
+    csrc/extract_brief.cu."""
     name = "extract_brief_binned" if binned else "extract_brief"
     f, ha, wp, nb, cap = _check(name, atlas, blurred, tbl_x0, rel_y)
     dev = atlas.device
-    mu, mv, pat, bin_idx, bin_cs = _device_tables(dev)
+    pat, pairs, bin_cs = _brief_tables(dev)
     bits = torch.empty((f, nb * cap, 256), dtype=torch.uint8, device=dev)
     m10 = torch.empty((f, nb * cap), dtype=torch.float32, device=dev)
     m01 = torch.empty_like(m10)
-    fn = kernels.lib("extract_brief").extract_brief_launch
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [
-        ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(int(binned), *_ptrs(atlas, blurred, tbl_x0, rel_y, mu, mv, pat,
-                                bin_idx, bin_cs, bits, m10, m01),
+    fn = _brief_launcher(lib)
+    rc = fn(int(binned), *_ptrs(atlas, blurred, tbl_x0, rel_y, pat, pairs,
+                                bin_cs, bits, m10, m01),
             f, ha, wp, nb, cap, int(band), kernels.stream_ptr(atlas))
     kernels.check(name, rc)
     return bits, m10, m01
@@ -202,7 +270,7 @@ _PATCH_MODES = {"extract_patches": 0, "extract_patches_moments": 1,
 def _extract_patches_launch(name, atlas, blurred, tbl_x0, rel_y, band):
     f, ha, wp, nb, cap = _check(name, atlas, blurred, tbl_x0, rel_y)
     dev = atlas.device
-    mu, mv = _device_tables(dev)[:2]
+    mu, mv = _moment_weights(dev)
     blur = torch.empty((f, nb * cap, PATCH, PATCH), dtype=torch.float32,
                        device=dev)
     if name == "extract_patches":
@@ -211,10 +279,7 @@ def _extract_patches_launch(name, atlas, blurred, tbl_x0, rel_y, band):
         raw = None
         m10 = torch.empty((f, nb * cap), dtype=torch.float32, device=dev)
         m01 = torch.empty_like(m10)
-    fn = kernels.lib("extract_patches").extract_patches_launch
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [
-        ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _patch_launcher(kernels.lib("extract_patches"))
     rc = fn(_PATCH_MODES[name], *_ptrs(atlas, blurred, tbl_x0, rel_y, mu, mv,
                                        raw, blur, m10, m01),
             f, ha, wp, nb, cap, int(band), kernels.stream_ptr(atlas))

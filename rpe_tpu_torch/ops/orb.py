@@ -130,7 +130,11 @@ def _sample(patches, flat):
     return torch.gather(patches.reshape(k, PATCH * PATCH), 1, flat)
 
 
-def _steered_brief(patches, angles, transposed: bool):
+def steered_sample_index(angles, transposed: bool = False):
+    """(K,) angles -> (K, 512) patch indices iy * PATCH + ix (ix * PATCH +
+    iy if `transposed`) of the BRIEF pattern's points rotated by each angle,
+    rounded half-to-even and clamped to the patch; point j of pair k at
+    column 2k + j."""
     pat = torch.from_numpy(brief_pattern().astype(np.float32)).to(
         angles.device)
     ca, sa = torch.cos(angles), torch.sin(angles)
@@ -139,9 +143,14 @@ def _steered_brief(patches, angles, transposed: bool):
     ry = px[None] * sa[:, None, None] + py[None] * ca[:, None, None]
     ix = torch.clamp(torch.round(rx).to(torch.int64) + PATCH_R, 0, PATCH - 1)
     iy = torch.clamp(torch.round(ry).to(torch.int64) + PATCH_R, 0, PATCH - 1)
-    k = patches.shape[0]
     flat = ix * PATCH + iy if transposed else iy * PATCH + ix
-    vals = _sample(patches, flat.reshape(k, 512)).reshape(k, 256, 2)
+    return flat.reshape(angles.shape[0], 512)
+
+
+def _steered_brief(patches, angles, transposed: bool):
+    k = patches.shape[0]
+    vals = _sample(patches, steered_sample_index(angles, transposed)
+                   ).reshape(k, 256, 2)
     return (vals[..., 0] < vals[..., 1]).to(torch.uint8)
 
 

@@ -27,7 +27,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "scripts"))
 
+from kernel_breakdown import build_parallel  # noqa: E402
 from rpe_tpu_torch.config import EstimatorConfig  # noqa: E402
 from rpe_tpu_torch.ops import kernels  # noqa: E402
 from rpe_tpu_torch.ops.fast import _GAUSS7, \
@@ -39,29 +41,16 @@ from rpe_tpu_torch.utils.synthetic import make_sequence  # noqa: E402
 def build(variants):
     """{name: launcher} for NAME=SOURCE[:DEFINES] strings, compiled in
     parallel into csrc/build/variants/."""
-    out_dir = kernels.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    specs = {}
     for spec in variants:
         name, rest = spec.split("=", 1)
         src, _, defs = rest.partition(":")
-        so = out_dir / f"lib{name}.so"
-        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS,
-               *kernels.SOURCES["fast_harris"][1],
-               *[f"-D{d}" for d in defs.split(",") if d], "-o", str(so),
-               str(Path(src).resolve())]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       so)
+        specs[name] = ("fast_harris", Path(src).resolve(),
+                       [d for d in defs.split(",") if d])
     libs = {}
-    for name, (p, so) in procs.items():
-        log, _ = p.communicate()
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"ptxas[{name}]: {line.strip()}", flush=True)
-        if p.returncode != 0:
-            sys.exit(f"k1_variants: {name} failed to build:\n{log}")
-        fn = ctypes.CDLL(str(so)).fast_harris_launch
+    for name, (lib, _) in build_parallel(
+            specs, kernels.BUILD_DIR / "variants", "k1_variants").items():
+        fn = lib.fast_harris_launch
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int

@@ -107,25 +107,41 @@ def measure(name, fn, flush):
     return r
 
 
-def build_against(src_dir):
-    """Build src_dir's fast_harris.cu and five_point_roots.cu with the
-    repo's flags into libraries of their own; returns {name: CDLL}."""
+def build_parallel(specs, out_dir, tool, tag=""):
+    """Compile {name: (library key, source path, -D defines)} with the
+    repo's nvcc flags for each key, every nvcc started at once, into
+    out_dir/lib{name}.so; print each one's ptxas lines (as tag + name) and
+    exit naming `tool` if one fails. Returns {name: (CDLL, library path)}."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, (key, src, defs) in specs.items():
+        so = out_dir / f"lib{name}.so"
+        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS,
+               *kernels.SOURCES[key][1], *[f"-D{d}" for d in defs], "-I",
+               str(kernels.CSRC), "-o", str(so), str(src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       so)
     out = {}
-    build = kernels.BUILD_DIR / "against"
-    build.mkdir(parents=True, exist_ok=True)
-    for name in LIBS:
-        src, extra = kernels.SOURCES[name]
-        so = build / f"lib{name}.so"
-        p = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, *extra,
-                            "-o", str(so), str(Path(src_dir) / src)],
-                           capture_output=True, text=True)
+    for name, (p, so) in procs.items():
+        log, _ = p.communicate()
+        print_ptxas(f"{tag}{name}", log)
         if p.returncode != 0:
-            sys.exit(f"kernel_breakdown: {src_dir}/{src} failed to build:\n"
-                     f"{p.stdout}{p.stderr}")
-        print_ptxas(f"against {name}", p.stdout + p.stderr)
-        print_sass(f"against {name}", so)
-        out[name] = ctypes.CDLL(str(so))
+            sys.exit(f"{tool}: {name} ({specs[name][1]}) failed to build:\n"
+                     f"{log}")
+        out[name] = (ctypes.CDLL(str(so)), so)
     return out
+
+
+def build_against(src_dir, keys=LIBS, tool="kernel_breakdown"):
+    """Build src_dir's sources of the libraries `keys` with the repo's
+    flags into libraries of their own; returns {key: CDLL}."""
+    built = build_parallel(
+        {k: (k, Path(src_dir) / kernels.SOURCES[k][0], ()) for k in keys},
+        kernels.BUILD_DIR / "against", tool, tag="against ")
+    for k, (_, so) in built.items():
+        print_sass(f"against {k}", so)
+    return {k: lib for k, (lib, _) in built.items()}
 
 
 def print_ptxas(tag, log):

@@ -154,6 +154,85 @@ def test_extract_brief_kernel_matches_plain(scene, binned):
     assert not bk[~live].any() and not m10k[~live].any()
 
 
+def _edge_slots(cuda, f, seed=3):
+    """K2's and K12's inputs on seeded (f, 256, 320) atlases at band 32,
+    cap 72 (8 bands), with the slot layouts that stress a warp per slot:
+    band 0 all live, band 1 all parked, band 2's 12 live slots over a
+    constant raw region (zero moments), the last band's slots at the right
+    and bottom edges (x0 = WP - 31, y0 = HA - 31), at x0 = 0, and two past
+    the edges (rows and columns clamp, as the plain version's gather); the
+    other bands live first, then parked, as `band_tables` fills them.
+    Returns (args, live, constant-raw slots, last-band slots), masks (F, S).
+    """
+    g = np.random.default_rng(seed)
+    ha, wp, band, nb, cap, p = 256, 320, 32, 8, 72, 31
+    atlas = g.uniform(0, 255, (f, ha, wp)).astype(np.float32)
+    atlas[:, 64:127, :100] = 77.0
+    blur = g.uniform(0, 255, (f, ha, wp)).astype(np.float32)
+    x0 = g.integers(0, wp - p + 1, (f, nb, cap))
+    ry = g.integers(0, band, (f, nb, cap))
+    n_live = g.integers(0, cap + 1, (f, nb))
+    n_live[:, 0], n_live[:, 1], n_live[:, 2] = cap, 0, 12
+    x0[:, 2, :12] = g.integers(0, 70, (f, 12))
+    last = nb - 1
+    n_live[:, last] = 8
+    x0[:, last, :4], ry[:, last, :4] = wp - p, ha - p - last * band
+    x0[:, last, 4] = 0
+    x0[:, last, 5], ry[:, last, 5] = wp - p, 0
+    x0[:, last, 6:8], ry[:, last, 6:8] = wp - 5, band - 1
+    ry = np.where(np.arange(cap) < n_live[..., None], ry, -31)
+    const = np.zeros((f, nb, cap), bool)
+    const[:, 2, :12] = True
+    edge = np.zeros((f, nb, cap), bool)
+    edge[:, last, :8] = True
+    args = (torch.from_numpy(atlas).to(cuda), torch.from_numpy(blur).to(cuda),
+            torch.from_numpy(x0.astype(np.int32)).to(cuda),
+            torch.from_numpy(ry.astype(np.int32)).to(cuda), band)
+    return args, *(torch.from_numpy(m.reshape(f, -1)).to(cuda)
+                   for m in (ry >= 0, const, edge))
+
+
+@pytest.mark.parametrize("f", [1, 9])
+@pytest.mark.parametrize("binned", [False, True], ids=["k2", "k12_binned"])
+def test_extract_brief_kernel_edge_slots(cuda, binned, f):
+    """K2 and K12 on `_edge_slots`: the contract of
+    test_extract_brief_kernel_matches_plain on all live slots and on the
+    last band's alone; on constant raw patches moments exactly 0 and bits
+    equal to the plain version's (angle 0, bin 0); one launch."""
+    name = "extract_brief_binned" if binned else "extract_brief"
+    args, live, const, edge = _edge_slots(cuda, f)
+    n0 = kernels.LAUNCHES[name]
+    bk, m10k, m01k = extract_brief(*args, binned=binned)
+    bp, m10p, m01p = extract_brief_plain(*args, binned=binned)
+    assert kernels.LAUNCHES[name] == n0 + 1
+    assert bk.shape == (f, 8 * 72, 256) and bk.dtype == torch.uint8
+    for m in (live, edge):
+        assert float((bk == bp)[m].float().mean()) >= 0.999
+    torch.testing.assert_close(m10k, m10p, rtol=1e-4, atol=2.0)
+    torch.testing.assert_close(m01k, m01p, rtol=1e-4, atol=2.0)
+    assert not bk[~live].any() and not m10k[~live].any() \
+        and not m01k[~live].any()
+    for m in (m10k, m01k, m10p, m01p):
+        assert not m[const].any()
+    assert torch.equal(bk[const], bp[const])
+
+
+@pytest.mark.parametrize("binned", [False, True], ids=["k2", "k12_binned"])
+def test_extract_brief_kernel_nan_moments(cuda, binned):
+    """A raw region of NaN (a non-finite atlas given to the wrapper): the
+    slots over it get NaN moments and steer as zero moments do (angle 0,
+    bin 0), so their bits equal the plain version's over the same slots
+    with the region constant; parked slots stay zero."""
+    args, live, const, _ = _edge_slots(cuda, 2)
+    nan_atlas = args[0].clone()
+    nan_atlas[:, 64:127, :100] = float("nan")
+    bk, m10k, m01k = extract_brief(nan_atlas, *args[1:], binned=binned)
+    bp = extract_brief_plain(*args, binned=binned)[0]
+    assert torch.isnan(m10k[const]).all() and torch.isnan(m01k[const]).all()
+    assert torch.equal(bk[const], bp[const])
+    assert not bk[~live].any() and not m10k[~live].any()
+
+
 @pytest.mark.parametrize("name", ["extract_patches", "extract_patches_moments",
                                   "extract_patches_t"])
 def test_patch_kernels_match_plain(scene, name):

@@ -23,6 +23,7 @@ import rpe_tpu.config as jcfg
 from rpe_tpu.pipeline import estimator as jest
 from rpe_tpu_torch import config as tcfg
 from rpe_tpu_torch import convert, rng
+from rpe_tpu_torch.ops.orb import _ic_angle_masks
 from rpe_tpu_torch.pipeline import estimator as test_
 from rpe_tpu_torch.utils.synthetic import make_sequence, rotation_error_deg
 from torch_gates import default_extraction_gates  # noqa: F401
@@ -215,28 +216,67 @@ def test_chip_smoke_phases_and_refusals(tmp_path, case):
             else "not found") in r.stderr
 
 
-@pytest.mark.parametrize("band", [8, 32])
-def test_chip_smoke_k2_bound_counts_the_union_of_live_patches(band):
-    """The K2 byte bound reads each atlas pixel under a live slot's patch
-    once: held against a brute-force set union on random band tables."""
+def _smoke_module():
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    g = np.random.default_rng(band)
-    f, nb, cap, ha, wp, patch = 2, 6, 5, 6 * band + 40, 90, 31
+    return smoke
+
+
+def _random_slots(g, band, patch=31):
+    f, nb, cap, ha, wp = 2, 6, 5, 6 * band + 40, 90
     tbl_x0 = g.integers(0, wp - patch + 4, size=(f, nb, cap)).astype(np.int32)
     rel_y = g.integers(0, band, size=(f, nb, cap)).astype(np.int32)
     rel_y[g.random(size=rel_y.shape) < 0.3] = -31
+    return tbl_x0, rel_y, ha, wp
+
+
+def _brute_union(tbl_x0, rel_y, band, ha, wp, feet, patch=31):
+    """Set union of (frame, row, col) that the l-th live slot reads at its
+    patch indices feet[l] (clamped to the atlas)."""
     want = set()
-    for i, b, c in zip(*np.nonzero(rel_y >= 0)):
+    for l, (i, b, c) in enumerate(zip(*np.nonzero(rel_y >= 0))):
         y0, x0 = b * band + rel_y[i, b, c], tbl_x0[i, b, c]
-        for dy in range(patch):
-            for dx in range(patch):
-                want.add((i, min(y0 + dy, ha - 1), min(x0 + dx, wp - 1)))
-    got = smoke.patch_union_px(torch, torch.from_numpy(tbl_x0),
-                               torch.from_numpy(rel_y), band, ha, wp, patch)
-    assert got == len(want) > 0
+        for k in feet[l]:
+            want.add((i, min(y0 + k // patch, ha - 1),
+                      min(x0 + k % patch, wp - 1)))
+    return len(want)
+
+
+@pytest.mark.parametrize("band", [8, 32])
+def test_chip_smoke_k2_bound_counts_the_union_of_live_patches(band):
+    """The extraction byte bounds read each atlas pixel under a live slot's
+    whole patch, or under its IC mask, once: held against a brute-force
+    set union on random band tables."""
+    smoke = _smoke_module()
+    tbl_x0, rel_y, ha, wp = _random_slots(np.random.default_rng(band), band)
+    n_live = int((rel_y >= 0).sum())
+    args = (torch, torch.from_numpy(tbl_x0), torch.from_numpy(rel_y), band,
+            ha, wp)
+    whole = np.arange(31 * 31)
+    ic = np.flatnonzero(_ic_angle_masks()[0])
+    for foot in (whole, ic):
+        got = smoke.union_px(*args, torch.from_numpy(foot))
+        want = _brute_union(tbl_x0, rel_y, band, ha, wp, [foot] * n_live)
+        assert got == want > 0
+    assert smoke.union_px(*args, torch.from_numpy(ic)) < smoke.union_px(
+        *args, torch.from_numpy(whole))
+
+
+@pytest.mark.parametrize("band", [8, 32])
+def test_chip_smoke_bound_counts_each_slots_own_samples(band):
+    """With a footprint per live slot (K2's rotated samples, K12's bin
+    row), each slot adds only its own pixels to the union."""
+    smoke = _smoke_module()
+    g = np.random.default_rng(100 + band)
+    tbl_x0, rel_y, ha, wp = _random_slots(g, band)
+    n_live = int((rel_y >= 0).sum())
+    feet = g.integers(0, 31 * 31, size=(n_live, 40))
+    got = smoke.union_px(torch, torch.from_numpy(tbl_x0),
+                         torch.from_numpy(rel_y), band, ha, wp,
+                         torch.from_numpy(feet))
+    assert got == _brute_union(tbl_x0, rel_y, band, ha, wp, feet) > 0
 
 
 def test_config_defaults_are_the_parity_config():
