@@ -23,9 +23,12 @@ Phases (any failure exits non-zero before the final line):
      descriptors, K4 on 8 x 256 hypotheses' coefficients and 2048 exact
      minimal problems, K5 (K4's brackets alone) on the latter -- with its
      contract, its time (CUDA events, L2 flushed before each launch; for
-     K1, K4 and K5 also the queued time per call of 20 calls back to
-     back), the plain version's time, a library call's time where one
-     computes the same function, and its bound on the H100;
+     K1, K4, K5 and K8-K10 also the queued time per call of 20 calls back
+     to back), the plain version's time, a library call's time where one
+     computes the same function, and its bound on the H100; then K8, K9
+     and K10 on edge-slot tables (live, parked, constant-raw and past-edge
+     slots, one layout with F * NB * CAP not a multiple of 4) against their
+     plain versions, K9's and K10's moments equal to K2's;
   4. paths: `estimate_sequence_batched` on the 9 frames (8 pairs) at
      EstimatorConfig() (ORB, Hamming cross-check: K1-K4), SIFT with L2
      cross-check (config A: K7, K4), SIFT with the L2 Lowe ratio test
@@ -312,10 +315,11 @@ def main() -> None:
                             (got[2] - want[2]).abs().max()))
             k2_same = bool(torch.equal(got[1], m10_k)
                            and torch.equal(got[2], m01_k))
+            ok = ok and k2_same
             what = (f"blur{' (transposed)' if name.endswith('_t') else ''} "
                     f"identical={same[0]}, moments allclose(rtol 1e-4, atol "
-                    f"2)={close} (max abs err {err:.3e}; equal to K2's: "
-                    f"{k2_same})")
+                    f"2)={close} (max abs err {err:.3e}), moments equal to "
+                    f"K2's={k2_same}")
         parked = all(bool((t[~live] == 0).all()) for t in got)
         check(f"K{kn} {name}", ok and parked,
               f"{int(live.sum())} live of {n_slots} slots, {what}, parked "
@@ -332,7 +336,40 @@ def main() -> None:
             max_abs_err=err, ms=cuda_ms(lambda: kern(*args)),
             plain_ms=cuda_ms(lambda: plain(*args), iters=3),
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        queued[name] = queued_ms(lambda: kern(*args))
         del got, want
+
+    # K8, K9, K10 on edge-slot tables: live, parked, constant-raw and
+    # past-edge slots (rows and columns clamp to the atlas), one layout
+    # whose slot count is not a multiple of 4
+    for f_e, nb_e, cap_e in ((2, 8, 72), (1, 7, 71)):
+        eargs, elive, econst = _edge_slots(torch, np, dev, f_e, nb_e, cap_e)
+        _, e10, e01 = extract_brief(*eargs)
+        for kn, name in ((8, "extract_patches"),
+                         (9, "extract_patches_moments"),
+                         (10, "extract_patches_t")):
+            got = getattr(textract, name)(*eargs)
+            want = getattr(textract, name + "_plain")(*eargs)
+            same = [bool(torch.equal(x, y)) for x, y in zip(got, want)]
+            parked = all(bool((t[~elive] == 0).all()) for t in got)
+            if name == "extract_patches":
+                ok, what = all(same), f"raw and blur identical={same}"
+            else:
+                close = all(bool(torch.allclose(x, y, rtol=1e-4, atol=2.0))
+                            for x, y in zip(got[1:], want[1:]))
+                k2_same = bool(torch.equal(got[1], e10)
+                               and torch.equal(got[2], e01))
+                const0 = not (bool(got[1][econst].any())
+                              or bool(got[2][econst].any()))
+                ok = same[0] and close and k2_same and const0
+                what = (f"blur identical={same[0]}, moments allclose(rtol "
+                        f"1e-4, atol 2)={close}, equal to K2's={k2_same}, 0 "
+                        f"on constant raw patches={const0}")
+            check(f"K{kn} {name} (edge slots, F={f_e}, {nb_e}x{cap_e})",
+                  ok and parked, f"{int(elive.sum())} live of "
+                  f"{f_e * nb_e * cap_e} slots, {what}, parked slots zero="
+                  f"{parked}")
+        del eargs, got, want
 
     bits_k, m10_k, m01_k = extract_brief(*args, binned=True)
     bits_p, m10_p, m01_p = extract_brief_plain(*args, binned=True)
@@ -724,6 +761,40 @@ def _gates(gates):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def _edge_slots(torch, np, dev, f, nb, cap, seed=3):
+    """Seeded (f, nb * 32, 320) atlases at band 32 with slot tables that
+    stress the extraction kernels: band 0 all live, band 1 all parked, band
+    2's 12 live slots over a constant raw region (zero moments), the last
+    band's slots at the right and bottom edges, at x0 = 0 and two past the
+    edges; the other bands live first, then parked, as `band_tables` fills
+    them. Returns (args, live, constant-raw slots), masks (F, S)."""
+    g = np.random.default_rng(seed)
+    wp, band, p = 320, 32, 31
+    ha = nb * band
+    atlas = g.uniform(0, 255, (f, ha, wp)).astype(np.float32)
+    atlas[:, 64:127, :100] = 77.0
+    blur = g.uniform(0, 255, (f, ha, wp)).astype(np.float32)
+    x0 = g.integers(0, wp - p + 1, (f, nb, cap))
+    ry = g.integers(0, band, (f, nb, cap))
+    n_live = g.integers(0, cap + 1, (f, nb))
+    n_live[:, 0], n_live[:, 1], n_live[:, 2] = cap, 0, 12
+    x0[:, 2, :12] = g.integers(0, 70, (f, 12))
+    last = nb - 1
+    n_live[:, last] = 8
+    x0[:, last, :4], ry[:, last, :4] = wp - p, ha - p - last * band
+    x0[:, last, 4] = 0
+    x0[:, last, 5], ry[:, last, 5] = wp - p, 0
+    x0[:, last, 6:8], ry[:, last, 6:8] = wp - 5, band - 1
+    ry = np.where(np.arange(cap) < n_live[..., None], ry, -31)
+    const = np.zeros((f, nb, cap), bool)
+    const[:, 2, :12] = True
+    args = (torch.from_numpy(atlas).to(dev), torch.from_numpy(blur).to(dev),
+            torch.from_numpy(x0.astype(np.int32)).to(dev),
+            torch.from_numpy(ry.astype(np.int32)).to(dev), band)
+    return args, *(torch.from_numpy(m.reshape(f, -1)).to(dev)
+                   for m in (ry >= 0, const))
 
 
 def brief_footprints(torch, m10, m01, live):

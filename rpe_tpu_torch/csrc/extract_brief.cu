@@ -33,10 +33,9 @@
 //     on each side are never read (K2's clamp to them acts only on
 //     non-finite moments);
 //   - the raw patch never goes to shared memory: each lane folds its rows
-//     into m10, m01 with the exact weights u, v of its column and row (the
-//     products `mask * u`, `mask * v` of ops/orb.py `_ic_angle_masks`); a
-//     butterfly of shuffles then gives every lane the same sums (float
-//     addition commutes, so each pair of lanes adds the same two values);
+//     into m10, m01 with the exact weights u, v of its column and row, and
+//     a butterfly of shuffles gives every lane the same sums (slot_warp.cuh
+//     `ic_fold`, shared with K9 and K10, whose moments are therefore K2's);
 //   - each lane samples 8 of the 256 pairs (pairs lane * 8 + k) and stores
 //     its 8 result bytes as one 8-byte store, the warp's 256 bytes
 //     coalesced;
@@ -65,40 +64,15 @@
 #include <math.h>
 
 #include "error_string.cuh"
+#include "slot_warp.cuh"
 
-#define PATCH 31
-#define PATCH_R 15
-#define NPIX (PATCH * PATCH)
 #define SAMPLE_R 13           // rotated samples round to |ix|, |iy| <= 13
 #define WARPS 4
 #define NBINS 30
-#define FULL 0xffffffffu
 
-// OpenCV's IC_Angle extents: row v of the mask covers |u| <= kUmax[|v|]. The
-// wrapper holds them to ops/orb.py `_ic_angle_masks()`, and the BRIEF
-// pattern to SAMPLE_R, when it loads the library (extract_brief_layout).
-constexpr int kUmax[PATCH_R + 1] = {15, 15, 15, 15, 14, 14, 14, 13,
-                                    13, 12, 11, 10, 9,  8,  6,  3};
-
-constexpr unsigned long long pack_umax() {
-    unsigned long long p = 0;
-    for (int v = 0; v <= PATCH_R; ++v)
-        p |= (unsigned long long)kUmax[v] << (4 * v);
-    return p;
-}
-
-constexpr unsigned long long kUmaxBits = pack_umax();
-
-__device__ __forceinline__ int umax_of(int av) {
-    return (int)((kUmaxBits >> (4 * av)) & 15ull);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-                 "l"(src)
-                 : "memory");
-}
+// The wrapper holds the IC mask's extents (slot_warp.cuh `kUmax`) to ops/
+// orb.py `_ic_angle_masks()`, and the BRIEF pattern to SAMPLE_R, when it
+// loads the library (extract_brief_layout).
 
 // Row-major patch index of the rotated pattern point (px, py), clamped to
 // the pixels copied (|ix|, |iy| <= SAMPLE_R): with finite moments
@@ -156,8 +130,7 @@ extract_brief_kernel(const float* __restrict__ atlas, const float* __restrict__ 
     const float* A = atlas + col;
     const float* Bl = blur + col;
     float* sb = s_blur[w];
-    const int u = lane - PATCH_R;
-    const int au = abs(u);
+    const int au = abs(lane - PATCH_R);
     float raw[PATCH];
 #pragma unroll
     for (int r = 0; r < PATCH; ++r) {
@@ -166,18 +139,8 @@ extract_brief_kernel(const float* __restrict__ atlas, const float* __restrict__ 
             cp_async4(sb + r * PATCH + lane, Bl + o);
         raw[r] = au <= umax_of(abs(r - PATCH_R)) ? __ldg(A + o) : 0.f;
     }
-    const float fu = (float)u;
-    float m10 = 0.f, m01 = 0.f;
-#pragma unroll
-    for (int r = 0; r < PATCH; ++r) {
-        m10 = m10 + raw[r] * fu;
-        m01 = m01 + raw[r] * (float)(r - PATCH_R);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        m10 = m10 + __shfl_xor_sync(FULL, m10, off);
-        m01 = m01 + __shfl_xor_sync(FULL, m01, off);
-    }
+    float m10, m01;
+    ic_fold(raw, lane, m10, m01);
     if (lane == 0) {
         m10_out[so] = m10;
         m01_out[so] = m01;

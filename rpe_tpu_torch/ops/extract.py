@@ -63,15 +63,6 @@ def extract_route() -> str:
     return "extract_patches"
 
 
-@functools.lru_cache(maxsize=None)
-def _moment_weights(dev: torch.device):
-    """K8-K10's moment weights mu, mv (961,) float32 on `dev`, copied there
-    once: the IC mask times u, v."""
-    mask, us, vs = _ic_angle_masks()
-    return tuple(torch.from_numpy(np.ascontiguousarray((mask * w).reshape(-1)))
-                 .to(dev) for w in (us, vs))
-
-
 def _brief_tables_np():
     """K2's and K12's static tables in csrc/extract_brief.cu's layouts, so
     that each warp-wide load reads consecutive addresses (a lane samples
@@ -106,6 +97,15 @@ def ic_umax():
     return (mask[PATCH_R:].sum(axis=1).astype(np.int64) - 1) // 2
 
 
+def _check_umax(source, umax):
+    """Raise unless the IC mask extents a library hard-codes are
+    `ic_umax()`."""
+    if list(umax) != ic_umax().tolist():
+        raise RuntimeError(f"{source} umax {list(umax)} disagrees with "
+                           f"ops/orb.py _ic_angle_masks() "
+                           f"{ic_umax().tolist()}")
+
+
 @functools.lru_cache(maxsize=None)
 def _brief_launcher(lib):
     """K2's and K12's launcher with its argument types set, once per loaded
@@ -115,30 +115,31 @@ def _brief_launcher(lib):
     pattern's."""
     buf = (ctypes.c_int * (PATCH_R + 2))()
     lib.extract_brief_layout(buf)
-    umax, sample_r = list(buf[:PATCH_R + 1]), buf[PATCH_R + 1]
-    if umax != ic_umax().tolist():
-        raise RuntimeError(f"extract_brief.cu umax {umax} disagrees with "
-                           f"ops/orb.py _ic_angle_masks() "
-                           f"{ic_umax().tolist()}")
+    _check_umax("extract_brief.cu", buf[:PATCH_R + 1])
+    sample_r = buf[PATCH_R + 1]
     reach = int((brief_pattern().astype(np.int64) ** 2).sum(-1).max())
     if reach > sample_r ** 2:
         raise RuntimeError(f"extract_brief.cu samples within radius "
                            f"{sample_r}; the BRIEF pattern reaches radius "
                            f"{reach ** 0.5:.2f}")
-    return _typed(lib.extract_brief_launch)
+    return _typed(lib.extract_brief_launch, 10)
 
 
 @functools.lru_cache(maxsize=None)
 def _patch_launcher(lib):
     """K8-K10's launcher with its argument types set, once per loaded
-    library."""
-    return _typed(lib.extract_patches_launch)
+    library, after holding K9's and K10's IC mask extents to
+    `ic_umax()`."""
+    buf = (ctypes.c_int * (PATCH_R + 1))()
+    lib.extract_patches_layout(buf)
+    _check_umax("extract_patches.cu", buf[:])
+    return _typed(lib.extract_patches_launch, 8)
 
 
-def _typed(fn):
-    """Both sources' launchers take (mode, 10 pointers, F, HA, WP, NB, CAP,
-    band, stream) and return a cudaError_t."""
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [
+def _typed(fn, n_ptrs):
+    """Both sources' launchers take (mode, n_ptrs pointers, F, HA, WP, NB,
+    CAP, band, stream) and return a cudaError_t."""
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + [
         ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -267,10 +268,11 @@ _PATCH_MODES = {"extract_patches": 0, "extract_patches_moments": 1,
                 "extract_patches_t": 2}
 
 
-def _extract_patches_launch(name, atlas, blurred, tbl_x0, rel_y, band):
+def _launch_patches(lib, name, atlas, blurred, tbl_x0, rel_y, band):
+    """K8, K9 or K10 (`name`) launched from `lib`, a build of
+    csrc/extract_patches.cu."""
     f, ha, wp, nb, cap = _check(name, atlas, blurred, tbl_x0, rel_y)
     dev = atlas.device
-    mu, mv = _moment_weights(dev)
     blur = torch.empty((f, nb * cap, PATCH, PATCH), dtype=torch.float32,
                        device=dev)
     if name == "extract_patches":
@@ -279,9 +281,9 @@ def _extract_patches_launch(name, atlas, blurred, tbl_x0, rel_y, band):
         raw = None
         m10 = torch.empty((f, nb * cap), dtype=torch.float32, device=dev)
         m01 = torch.empty_like(m10)
-    fn = _patch_launcher(kernels.lib("extract_patches"))
-    rc = fn(_PATCH_MODES[name], *_ptrs(atlas, blurred, tbl_x0, rel_y, mu, mv,
-                                       raw, blur, m10, m01),
+    fn = _patch_launcher(lib)
+    rc = fn(_PATCH_MODES[name], *_ptrs(atlas, blurred, tbl_x0, rel_y, raw,
+                                       blur, m10, m01),
             f, ha, wp, nb, cap, int(band), kernels.stream_ptr(atlas))
     kernels.check(name, rc)
     return (raw, blur) if m10 is None else (blur, m10, m01)
@@ -292,8 +294,8 @@ def extract_patches(atlas, blurred, tbl_x0, rel_y, band: int):
     csrc/extract_patches.cu, CPU tensors take `extract_patches_plain`."""
     if atlas.device.type == "cpu":
         return extract_patches_plain(atlas, blurred, tbl_x0, rel_y, band)
-    return _extract_patches_launch("extract_patches", atlas, blurred, tbl_x0,
-                                   rel_y, band)
+    return _launch_patches(kernels.lib("extract_patches"), "extract_patches",
+                           atlas, blurred, tbl_x0, rel_y, band)
 
 
 def extract_patches_moments(atlas, blurred, tbl_x0, rel_y, band: int):
@@ -302,8 +304,9 @@ def extract_patches_moments(atlas, blurred, tbl_x0, rel_y, band: int):
     if atlas.device.type == "cpu":
         return extract_patches_moments_plain(atlas, blurred, tbl_x0, rel_y,
                                              band)
-    return _extract_patches_launch("extract_patches_moments", atlas, blurred,
-                                   tbl_x0, rel_y, band)
+    return _launch_patches(kernels.lib("extract_patches"),
+                           "extract_patches_moments", atlas, blurred, tbl_x0,
+                           rel_y, band)
 
 
 def extract_patches_t(atlas, blurred, tbl_x0, rel_y, band: int):
@@ -312,5 +315,6 @@ def extract_patches_t(atlas, blurred, tbl_x0, rel_y, band: int):
     version."""
     if atlas.device.type == "cpu":
         return extract_patches_t_plain(atlas, blurred, tbl_x0, rel_y, band)
-    return _extract_patches_launch("extract_patches_t", atlas, blurred,
-                                   tbl_x0, rel_y, band)
+    return _launch_patches(kernels.lib("extract_patches"),
+                           "extract_patches_t", atlas, blurred, tbl_x0, rel_y,
+                           band)

@@ -1,41 +1,54 @@
 #!/usr/bin/env python3
-"""Where K2's (steered-BRIEF extraction) and K12's (its binned twin) time
-goes on the card, at one chunk's shapes, and how another build of their
-source compares.
+"""Where the extraction kernels' time goes on the card, at one chunk's
+shapes -- K2 (steered-BRIEF extraction), K12 (its binned twin) and the
+patch kernels K8, K9, K10 -- and how another build of their sources
+compares.
 
     python3 scripts/extract_breakdown.py
     python3 scripts/extract_breakdown.py --against DIR   # DIR holds another
                                                          # extract_brief.cu
+                                                         # and
+                                                         # extract_patches.cu
 
 Needs a CUDA card and nvcc. Inputs, made from seed 0 as chip_smoke.py makes
 them: the 9 atlases and blurred atlases (9, 3200, 1280) of
 `make_sequence(9, 376, 1241)` and their band tables (9, 100, 72) at the
-parity configuration's band 32, cap 72. For K2 and K12 it prints:
+parity configuration's band 32, cap 72. For each kernel it prints:
   - flushed: mean CUDA-event time of one call with the L2 flushed before
     it (chip_smoke.py's measurement; host time between the events counts
     when the card waits for the launch);
   - queued: mean CUDA-event time per call over 20 calls queued back to
     back, and the host's own time per call in that loop;
-  - device: per-kernel device time from torch.profiler over 20 calls;
+  - device: per-kernel device time from torch.profiler over 20 calls
+    (the mean over the launches it recorded);
   - the ptxas lines (registers, spills, shared memory) and, where the
     toolkit has cuobjdump, the static SASS instruction count and its most
     frequent opcodes;
-  - bits against the plain version on the live slots (agreement to six
-    digits), the largest moment difference, parked slots zero;
+  - K2, K12: bits against the plain version on the live slots (agreement
+    to six digits), the largest moment difference, parked slots zero;
+  - K8-K10: patches identical to the plain version's, the largest moment
+    difference, moments equal to K2's on the same tables, parked slots
+    zero;
+  - the store path's yardstick: the same times for PyTorch filling one
+    K9/K10 patch output (249 MB of writes) and copying one into another;
   - the 32-byte sectors a pixel-per-lane reading of the live patches
     requests from L2 (the raw patch over the IC mask's rows, the blurred
     patch whole or within 13 pixels of the centre), counted from the
     tables, and the sectors that hold a pixel some live slot needs (raw
     under its IC mask, blurred at its samples: what device memory must
     deliver at least).
-With --against DIR, DIR's extract_brief.cu (built with the same flags; its
-launcher must take the repo's arguments) is timed the same way (in turns:
-DIR, repo, repo, DIR) and compared with the repo's kernels: live slots
-whose bits differ, bits that differ, and the largest moment difference.
+With --against DIR, DIR's extract_brief.cu and extract_patches.cu (built
+with the same flags; DIR's extract_brief.cu launcher must take the repo's
+arguments, its extract_patches.cu launcher the repo's or the earlier one
+with the moment weights) are timed the same way (in turns: DIR, repo,
+repo, DIR) and compared with the repo's kernels: whether every output is
+identical, live slots whose bits differ, bits that differ, and the
+largest moment difference.
 """
 
 import argparse
 import collections
+import ctypes
 import functools
 import re
 import subprocess
@@ -63,6 +76,10 @@ from rpe_tpu_torch.utils.device import full_precision  # noqa: E402
 from rpe_tpu_torch.utils.synthetic import make_sequence  # noqa: E402
 
 
+PATCH_KERNELS = (("K8", "extract_patches"), ("K9", "extract_patches_moments"),
+                 ("K10", "extract_patches_t"))
+
+
 def caller(lib):
     """A callable with extract_brief's signature: the repo's wrapper for the
     repo's library, else the same launch from `lib` (another build of
@@ -70,6 +87,62 @@ def caller(lib):
     if lib is kernels.lib("extract_brief"):
         return extract_brief
     return functools.partial(textract._launch_brief, lib)
+
+
+def patch_caller(lib, name):
+    """A callable with the signature of K8-K10's wrapper `name`: the repo's
+    wrapper for the repo's library; for another build of extract_patches.cu
+    the same launch through the repo's launcher where the build exports
+    its layout check, else through the earlier launcher, which also took
+    the moment weights."""
+    if lib is kernels.lib("extract_patches"):
+        return getattr(textract, name)
+    if hasattr(lib, "extract_patches_layout"):
+        return functools.partial(textract._launch_patches, lib, name)
+    return functools.partial(launch_patches_weights, lib, name)
+
+
+@functools.lru_cache(maxsize=None)
+def _weights_launcher(lib):
+    fn = lib.extract_patches_launch
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _moment_weights(dev):
+    """mu, mv (961,): the IC mask times u, v, on `dev` once."""
+    mask, us, vs = _ic_angle_masks()
+    return tuple(torch.from_numpy((mask * w).reshape(-1)).to(dev)
+                 for w in (us, vs))
+
+
+def launch_patches_weights(lib, name, atlas, blurred, tbl_x0, rel_y, band):
+    """K8-K10 (`name`) from a build of extract_patches.cu whose launcher
+    takes (mode, atlas, blur, tbl_x0, rel_y, mu, mv, raw_out, blur_out,
+    m10, m01, F, HA, WP, NB, CAP, band, stream), as the block-per-slot
+    source did."""
+    f, ha, wp = atlas.shape
+    nb, cap = tbl_x0.shape[1:]
+    dev = atlas.device
+    blur = torch.empty((f, nb * cap, PATCH, PATCH), device=dev)
+    if name == "extract_patches":
+        raw, m10, m01 = torch.empty_like(blur), None, None
+    else:
+        raw, m10 = None, torch.empty((f, nb * cap), device=dev)
+        m01 = torch.empty_like(m10)
+    ptrs = [None if t is None else t.data_ptr() for t in (
+        atlas, blurred, tbl_x0, rel_y, *_moment_weights(dev), raw, blur, m10,
+        m01)]
+    rc = _weights_launcher(lib)(textract._PATCH_MODES[name], *ptrs, f, ha,
+                                wp, nb, cap, int(band),
+                                kernels.stream_ptr(atlas))
+    if rc != 0:
+        sys.exit(f"extract_breakdown: {name} failed to launch (cudaError "
+                 f"{rc})")
+    return (raw, blur) if m10 is None else (blur, m10, m01)
 
 
 def print_opcodes(tag, so, top=12):
@@ -93,6 +166,7 @@ def contract(tag, got, want, live):
     the largest moment difference, parked slots zero."""
     bits_k, m10_k, m01_k = got
     bits_p, m10_p, m01_p = want
+    same = all(bool(torch.equal(x, y)) for x, y in zip(got, want))
     eq = bits_k == bits_p
     agree = float(eq[live].float().mean())
     slots = int((~eq.all(-1))[live].sum())
@@ -100,10 +174,25 @@ def contract(tag, got, want, live):
                               (m01_k - m01_p).abs().max()))
     parked = bool((bits_k[~live] == 0).all() and (m10_k[~live] == 0).all()
                   and (m01_k[~live] == 0).all())
-    print(f"{tag}: bit agreement {agree:.6f} on {int(live.sum())} live "
-          f"slots, {slots} slots and {int((~eq)[live].sum())} bits differ, "
-          f"max moment difference {err:.3e}, parked slots zero={parked}",
-          flush=True)
+    print(f"{tag}: outputs identical={same}, bit agreement {agree:.6f} on "
+          f"{int(live.sum())} live slots, {slots} slots and "
+          f"{int((~eq)[live].sum())} bits differ, max moment difference "
+          f"{err:.3e}, parked slots zero={parked}", flush=True)
+
+
+def patch_contract(tag, got, want, live, k2=None):
+    """K8-K10's outputs against the plain version (or another build):
+    each output identical, the largest moment difference, moments equal
+    to K2's (`k2`: its m10, m01 on the same tables), parked slots zero."""
+    same = [bool(torch.equal(x, y)) for x, y in zip(got, want)]
+    err = 0.0 if len(got) == 2 else float(max(
+        (got[1] - want[1]).abs().max(), (got[2] - want[2]).abs().max()))
+    parked = all(bool((t[~live] == 0).all()) for t in got)
+    k2_same = "" if k2 is None or len(got) == 2 else (
+        f", moments equal to K2's={bool(torch.equal(got[1], k2[0]))}"
+        f"/{bool(torch.equal(got[2], k2[1]))}")
+    print(f"{tag}: outputs identical {same}, max moment difference "
+          f"{err:.3e}{k2_same}, parked slots zero={parked}", flush=True)
 
 
 def sector_counts(atlas, tbl_x0, rel_y, band, feet):
@@ -155,16 +244,23 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(f"nvidia-smi: {smi.stdout.strip()}", flush=True)
-    print_ptxas("extract_brief", kernels.PTXAS_LOG.get("extract_brief", ""))
-    print_sass("extract_brief", kernels._lib_path("extract_brief"))
-    print_opcodes("extract_brief", kernels._lib_path("extract_brief"))
-    libs = {"repo": kernels.lib("extract_brief")}
+    keys = ("extract_brief", "extract_patches")
+    for key in keys:
+        print_ptxas(key, kernels.PTXAS_LOG.get(key, ""))
+        print_sass(key, kernels._lib_path(key))
+        print_opcodes(key, kernels._lib_path(key))
+    libs = {"repo": {k: kernels.lib(k) for k in keys}}
     if args.against:
-        libs["against"] = build_against(args.against, ("extract_brief",),
-                                        "extract_breakdown")["extract_brief"]
-        print_opcodes("against extract_brief",
-                      kernels.BUILD_DIR / "against" / "libextract_brief.so")
-    calls = {tag: caller(lib) for tag, lib in libs.items()}
+        libs["against"] = build_against(args.against, keys,
+                                        "extract_breakdown")
+        for key in keys:
+            print_opcodes(f"against {key}",
+                          kernels.BUILD_DIR / "against" / f"lib{key}.so")
+    calls = {tag: caller(lib["extract_brief"]) for tag, lib in libs.items()}
+    pcalls = {tag: {n: patch_caller(lib["extract_patches"], n)
+                    for _, n in PATCH_KERNELS} for tag, lib in libs.items()}
+    order = ("against", "repo", "repo", "against") if args.against \
+        else ("repo",)
 
     o = EstimatorConfig().orb
     frames, _, _ = make_sequence(9, 376, 1241, seed=0)
@@ -195,11 +291,33 @@ def main():
         if "against" in outs:
             contract(f"{name} [repo vs against]", outs["repo"],
                      outs["against"], live)
-        order = ("against", "repo", "repo", "against") if args.against \
-            else ("repo",)
         for tag in order:
             measure(f"{name} [{tag}]",
                     lambda: calls[tag](*targs, binned=binned), flush)
+
+    k2 = extract_brief(*targs)[1:]
+    for kn, name in PATCH_KERNELS:
+        plain = getattr(textract, name + "_plain")(*targs)
+        outs = {tag: pc[name](*targs) for tag, pc in pcalls.items()}
+        for tag, out in outs.items():
+            patch_contract(f"{kn} {name} [{tag} vs plain]", out, plain, live,
+                           k2)
+        if "against" in outs:
+            patch_contract(f"{kn} {name} [repo vs against]", outs["repo"],
+                           outs["against"], live)
+        del plain, outs
+        for tag in order:
+            measure(f"{kn} {name} [{tag}]",
+                    lambda: pcalls[tag][name](*targs), flush)
+
+    # the store path's yardstick: PyTorch filling one K9/K10 patch output
+    # (writes only) and copying one into another (reads and writes)
+    out = torch.empty((f, live.shape[1], PATCH, PATCH), device=dev)
+    src = torch.zeros_like(out)
+    print(f"yardstick: one patch output is {out.numel() * 4 / 1e6:.1f} MB",
+          flush=True)
+    measure("fill of one patch output", lambda: out.fill_(1.0), flush)
+    measure("copy of one patch output", lambda: out.copy_(src), flush)
 
 
 if __name__ == "__main__":

@@ -18,8 +18,9 @@ brackets alone) on the latter. For each wrapper it prints:
     when the card waits for the launch);
   - queued: mean CUDA-event time per call over 20 calls queued back to
     back, and the host's own time per call in that loop;
-  - device: per-kernel device time from torch.profiler over 20 calls (for
-    K4 its bracket and polish kernels apart);
+  - device: per-kernel device time from torch.profiler over 20 calls, the
+    mean over the launches it recorded (for K4 its bracket and polish
+    kernels apart);
   - the ptxas lines of both sources (registers, spills) and, where the
     toolkit has cuobjdump, each kernel's static SASS instruction count;
   - K1's bits against its plain version: interior pixels (8 px from every
@@ -90,11 +91,18 @@ def measure(name, fn, flush):
         for _ in range(20):
             fn()
         torch.cuda.synchronize()
-    dev_ms = {}
+    # per kernel, the mean over the launches the profiler recorded (it may
+    # drop some), so a call's device time is the sum of its kernels' means
+    tot, cnt = {}, {}
     for ev in prof.events():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            dev_ms[ev.name] = (dev_ms.get(ev.name, 0.0)
-                               + ev.time_range.elapsed_us() / 1e3 / 20)
+            tot[ev.name] = tot.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+            cnt[ev.name] = cnt.get(ev.name, 0) + 1
+    dev_ms = {k: tot[k] / cnt[k] / 1e3 for k in tot}
+    short = {k: n for k, n in cnt.items() if n < 20}
+    if short:
+        print(f"{name}: the profiler recorded fewer than 20 launches of "
+              f"{short}", flush=True)
     parts = ", ".join(f"{k[:40]} {v:.4f}" for k, v in sorted(
         dev_ms.items(), key=lambda kv: -kv[1]))
     r = dict(flushed=float(np.mean(flushed)), flushed_min=min(flushed),

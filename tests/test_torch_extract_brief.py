@@ -1,13 +1,16 @@
 """csrc/extract_brief.cu's host side on the CPU: what the kernel
-hard-codes (the IC mask's extents, the shared row stride), the table
-layouts the wrapper hands it (checked by running the kernel's per-lane
-indexing of its shared patches in numpy against the plain versions), and
-the launchers' argument types set once per library.
+hard-codes (the IC mask's extents in csrc/slot_warp.cuh, shared with K9 and
+K10 in csrc/extract_patches.cu; the shared row stride), the table layouts
+the wrapper hands it (checked by running the kernel's per-lane indexing of
+its shared patches in numpy against the plain versions), and the
+launchers' argument types set once per library after their layout
+checks.
 
 The kernels themselves run only on the card (tests/test_torch_gpu.py)."""
 
 import ctypes
 import re
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -19,14 +22,15 @@ from rpe_tpu_torch.ops.orb import PATCH, PATCH_R, _ic_angle_masks, \
     angle_bins, brief_pattern, ic_moments, steered_brief, \
     steered_brief_t_binned
 
-SOURCE = (Path(textract.__file__).resolve().parents[1] / "csrc"
-          / "extract_brief.cu")
+CSRC = Path(textract.__file__).resolve().parents[1] / "csrc"
+SOURCE = CSRC / "extract_brief.cu"
+HEADER = CSRC / "slot_warp.cuh"
 
 
 def _source_umax():
     m = re.search(r"kUmax\[PATCH_R \+ 1\] = \{([^}]*)\}",
-                  SOURCE.read_text())
-    assert m, "kUmax table not found in extract_brief.cu"
+                  HEADER.read_text())
+    assert m, "kUmax table not found in slot_warp.cuh"
     return [int(x) for x in m.group(1).replace("\n", " ").split(",")]
 
 
@@ -46,6 +50,32 @@ def test_kernel_umax_table_equals_ic_masks():
     v, u = np.mgrid[-PATCH_R:PATCH_R + 1, -PATCH_R:PATCH_R + 1]
     mask = np.abs(u) <= np.array(umax)[np.abs(v)]
     np.testing.assert_array_equal(mask, _ic_angle_masks()[0] > 0)
+
+
+@pytest.mark.parametrize("source", ["extract_brief.cu", "extract_patches.cu"])
+def test_sources_share_one_umax_table_and_fold(source):
+    """K2, K12, K9 and K10 take the IC mask's extents and the moment fold
+    from slot_warp.cuh, and neither source keeps a table of its own."""
+    text = (CSRC / source).read_text()
+    assert '#include "slot_warp.cuh"' in text
+    assert "kUmax[PATCH_R + 1] =" not in text
+    assert "ic_fold(raw, lane, m10, m01);" in text
+
+
+def _variants():
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+    import extract_variants
+    return extract_variants.VARIANTS
+
+
+@pytest.mark.parametrize("name", sorted(_variants()))
+def test_variant_edits_find_their_text(name):
+    """Each design-step variant of scripts/extract_variants.py edits text
+    that occurs exactly once in its source, so it builds what it names."""
+    key, _, edits = _variants()[name]
+    text = (CSRC / f"{key}.cu").read_text()
+    for old, _ in edits:
+        assert text.count(old) == 1, old
 
 
 class _Launch:
@@ -70,6 +100,10 @@ class _Lib:
         for i, x in enumerate(self.layout):
             buf[i] = x
 
+    def extract_patches_layout(self, buf):
+        for i, x in enumerate(self.layout[:PATCH_R + 1]):
+            buf[i] = x
+
 
 def _layout():
     return _source_umax() + [_source_sample_r()]
@@ -82,10 +116,11 @@ def test_launchers_set_argtypes_once_per_library():
             assert textract._brief_launcher(lib) is lib.extract_brief_launch
             assert textract._patch_launcher(lib) is \
                 lib.extract_patches_launch
-        for fn in (lib.extract_brief_launch, lib.extract_patches_launch):
+        for fn, n_args in ((lib.extract_brief_launch, 18),
+                           (lib.extract_patches_launch, 16)):
             assert fn.sets == 1
             assert fn.restype is ctypes.c_int
-            assert len(fn.argtypes) == 18
+            assert len(fn.argtypes) == n_args
 
 
 @pytest.mark.parametrize("entry,delta,match", [
@@ -98,6 +133,17 @@ def test_brief_launcher_refuses_another_layout(entry, delta, match):
     with pytest.raises(RuntimeError, match=match):
         textract._brief_launcher(lib)
     assert lib.extract_brief_launch.sets == 0
+
+
+@pytest.mark.parametrize("v", [0, PATCH_R])
+def test_patch_launcher_refuses_another_umax(v):
+    """K9's and K10's extents are held to `ic_umax()` as K2's are."""
+    layout = _layout()
+    layout[v] -= 1
+    lib = _Lib(layout)
+    with pytest.raises(RuntimeError, match="extract_patches.cu umax"):
+        textract._patch_launcher(lib)
+    assert lib.extract_patches_launch.sets == 0
 
 
 # ---- the kernel's per-lane indexing, in numpy ------------------------------

@@ -6,6 +6,9 @@ plain K5 against the reference's grid-and-bisect construction, ORB end to
 end under each route's gates, and the switches the port refuses. The same
 numpy arrays go to both packages."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -258,6 +261,122 @@ def test_brief_bin_tables_and_angle_bins_exact():
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     assert (got[4000:4003] == 0).all()
+
+
+# ---- K9's and K10's warp-per-slot layout, modelled in numpy -----------------
+
+PATCH_SOURCE = (Path(textract.__file__).resolve().parents[1] / "csrc"
+                / "extract_patches.cu")
+
+
+def _patch_warps():
+    m = re.search(r"#define WARPS (\d+)", PATCH_SOURCE.read_text())
+    assert m, "WARPS not found in extract_patches.cu"
+    return int(m.group(1))
+
+
+def _patch_blocks(f, nb, cap):
+    """csrc/extract_patches.cu's K9/K10 grid: block k owns the flat slots
+    k * WARPS + w (w < WARPS, below F * NB * CAP); a warp finds (f, b, s) as
+    the kernel does. Yields (first slot, [(slot, f, b, s), ...])."""
+    warps, n = _patch_warps(), f * nb * cap
+    for first in range(0, n, warps):
+        slots = []
+        for so in range(first, min(first + warps, n)):
+            fb = so // cap
+            ff = fb // nb
+            slots.append((so, ff, fb - ff * nb, so - fb * cap))
+        yield first, slots
+
+
+def _staged_index(transposed):
+    """Shared-memory index of pixel (row r, column c) within a warp's 961
+    floats: s[c * 31 + r] for K10, s[r * 31 + c] for K9."""
+    r, c = np.mgrid[0:PATCH, 0:PATCH]
+    return c * PATCH + r if transposed else r * PATCH + c
+
+
+@pytest.mark.parametrize("cap", [72, 71, 1])
+def test_patch_blocks_cover_every_slot_once(cap):
+    """Every slot of (F, NB, CAP) lies in exactly one block; each full
+    block's output run starts at a multiple of 16 bytes and spans a whole
+    number of 16-byte stores; only the last block may be partial."""
+    f, nb, warps = 3, 5, _patch_warps()
+    seen = np.zeros((f, nb, cap), np.int64)
+    blocks = list(_patch_blocks(f, nb, cap))
+    for first, slots in blocks:
+        for so, ff, b, s in slots:
+            assert np.ravel_multi_index((ff, b, s), (f, nb, cap)) == so
+            seen[ff, b, s] += 1
+        if len(slots) == warps:
+            assert first * PATCH * PATCH * 4 % 16 == 0
+            assert warps * PATCH * PATCH * 4 % 16 == 0
+    assert (seen == 1).all()
+    assert [len(sl) for _, sl in blocks[:-1]] == [warps] * (len(blocks) - 1)
+    assert len(blocks[-1][1]) == ((f * nb * cap) % warps or warps)
+
+
+def _staged_patches(blurred, x0, rel_y, band, transposed):
+    """K9's (K10's) blurred output as the kernel writes it: each warp
+    stages its slot's pixels (rows and columns clamped to the atlas) at
+    `_staged_index` in its block's shared run, a parked warp zeros; the run
+    is then stored in order from the block's first slot."""
+    f, ha, wp = blurred.shape
+    _, nb, cap = x0.shape
+    npix = PATCH * PATCH
+    out = np.full(f * nb * cap * npix, np.nan, np.float32)
+    idx = _staged_index(transposed)
+    pj = np.arange(PATCH)
+    for first, slots in _patch_blocks(f, nb, cap):
+        run = np.full(_patch_warps() * npix, np.nan, np.float32)
+        for w, (_, ff, b, s) in enumerate(slots):
+            sb = run[w * npix:(w + 1) * npix]
+            if rel_y[ff, b, s] < 0:
+                sb[:] = 0.0
+                continue
+            rows = np.clip(b * band + rel_y[ff, b, s] + pj, 0, ha - 1)
+            cols = np.clip(x0[ff, b, s] + pj, 0, wp - 1)
+            sb[idx] = blurred[ff][rows[:, None], cols[None, :]]
+        out[first * npix:(first + len(slots)) * npix] = \
+            run[:len(slots) * npix]
+    return out.reshape(f, nb * cap, PATCH, PATCH)
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["k9", "k10"])
+def test_staged_run_gives_plain_patches(transposed):
+    """Staging at `_staged_index` and storing the runs gives the plain
+    versions' patches (K10: `extract_patches_t_plain`'s transpose) on
+    slots live, parked and past the atlas edge, with a partial last
+    block."""
+    src = PATCH_SOURCE.read_text()
+    assert "lane * PATCH + r" in src and "r * PATCH + lane" in src
+    g = np.random.default_rng(17)
+    f, nb, cap, band, wp = 2, 3, 7, 16, 64
+    ha = nb * band
+    atlas = g.uniform(0, 255, (f, ha, wp)).astype(np.float32)
+    blurred = g.uniform(0, 255, (f, ha, wp)).astype(np.float32)
+    x0 = g.integers(0, wp - 4, (f, nb, cap)).astype(np.int32)
+    rel_y = g.integers(0, band, (f, nb, cap)).astype(np.int32)
+    rel_y[g.uniform(size=rel_y.shape) < 0.3] = -31
+    x0[:, -1, 0], rel_y[:, -1, 0] = wp - 5, band - 1      # past both edges
+    assert (f * nb * cap) % _patch_warps()
+    got = _staged_patches(blurred, x0, rel_y, band, transposed)
+    plain = (textract.extract_patches_t_plain if transposed
+             else textract.extract_patches_moments_plain)
+    want = plain(*(torch.from_numpy(a) for a in (atlas, blurred, x0, rel_y)),
+                 band)[0].numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["k9", "k10"])
+def test_staging_rows_hit_distinct_banks(transposed):
+    """The 31 copying lanes of each staging row (cp.async per row r, lane
+    c) write 31 distinct shared-memory banks, in every warp of a block."""
+    idx = _staged_index(transposed)
+    for w in range(_patch_warps()):
+        for r in range(PATCH):
+            banks = (w * PATCH * PATCH + idx[r, :]) % 32
+            assert len(set(banks.tolist())) == PATCH
 
 
 # ---- K5 ---------------------------------------------------------------------

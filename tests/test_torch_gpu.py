@@ -154,9 +154,10 @@ def test_extract_brief_kernel_matches_plain(scene, binned):
     assert not bk[~live].any() and not m10k[~live].any()
 
 
-def _edge_slots(cuda, f, seed=3):
-    """K2's and K12's inputs on seeded (f, 256, 320) atlases at band 32,
-    cap 72 (8 bands), with the slot layouts that stress a warp per slot:
+def _edge_slots(cuda, f, seed=3, nb=8, cap=72):
+    """The extraction kernels' inputs on seeded (f, nb * 32, 320) atlases at
+    band 32, cap 72 and 8 bands unless given, with the slot layouts that
+    stress a warp per slot:
     band 0 all live, band 1 all parked, band 2's 12 live slots over a
     constant raw region (zero moments), the last band's slots at the right
     and bottom edges (x0 = WP - 31, y0 = HA - 31), at x0 = 0, and two past
@@ -165,7 +166,8 @@ def _edge_slots(cuda, f, seed=3):
     Returns (args, live, constant-raw slots, last-band slots), masks (F, S).
     """
     g = np.random.default_rng(seed)
-    ha, wp, band, nb, cap, p = 256, 320, 32, 8, 72, 31
+    wp, band, p = 320, 32, 31
+    ha = nb * band
     atlas = g.uniform(0, 255, (f, ha, wp)).astype(np.float32)
     atlas[:, 64:127, :100] = 77.0
     blur = g.uniform(0, 255, (f, ha, wp)).astype(np.float32)
@@ -233,8 +235,11 @@ def test_extract_brief_kernel_nan_moments(cuda, binned):
     assert not bk[~live].any() and not m10k[~live].any()
 
 
-@pytest.mark.parametrize("name", ["extract_patches", "extract_patches_moments",
-                                  "extract_patches_t"])
+PATCH_KERNELS = ["extract_patches", "extract_patches_moments",
+                 "extract_patches_t"]
+
+
+@pytest.mark.parametrize("name", PATCH_KERNELS)
 def test_patch_kernels_match_plain(scene, name):
     """K8, K9, K10: patches identical, moments as K2's, parked slots zero;
     one launch each."""
@@ -250,6 +255,35 @@ def test_patch_kernels_match_plain(scene, name):
         torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=2.0)
         torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=2.0)
     assert not got[0][~live].any() and not got[1][~live].any()
+
+
+@pytest.mark.parametrize("f,nb,cap", [(1, 8, 72), (2, 8, 72), (1, 7, 71),
+                                      (2, 7, 71)],
+                         ids=["f1", "f2", "f1_cap71", "f2_cap71"])
+@pytest.mark.parametrize("name", PATCH_KERNELS)
+def test_patch_kernels_edge_slots(cuda, name, f, nb, cap):
+    """K8, K9, K10 on `_edge_slots` (live, parked, constant-raw and
+    past-edge slots; at cap 71 with 7 bands, F * NB * CAP is not a multiple
+    of 4): patches identical to the plain version's, moments within rtol
+    1e-4, atol 2 and equal to K2's on the same tables (exactly 0 on
+    constant raw patches), parked slots zero; one launch."""
+    args, live, const, edge = _edge_slots(cuda, f, nb=nb, cap=cap)
+    n0 = kernels.LAUNCHES[name]
+    got = getattr(textract, name)(*args)
+    want = getattr(textract, name + "_plain")(*args)
+    assert kernels.LAUNCHES[name] == n0 + 1
+    assert got[0].shape == (f, nb * cap, 31, 31)
+    assert torch.equal(got[0], want[0])
+    for t in got:
+        assert not t[~live].any()
+    if name == "extract_patches":
+        assert torch.equal(got[1], want[1])
+        return
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=2.0)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=2.0)
+    assert not got[1][const].any() and not got[2][const].any()
+    _, m10, m01 = extract_brief(*args)
+    assert torch.equal(got[1], m10) and torch.equal(got[2], m01)
 
 
 ROOT_BATCHES = [1, 31, 33, 256, 2047, 2048, 2049]
