@@ -41,7 +41,22 @@ Phases (any failure exits non-zero before the final line):
      again with device="cpu" (plain versions), which must agree (equal
      `valid`, <= 0.5 deg rotation); the K8-K10 routes' ORB bits must agree
      with the default route's on the same keypoints (>= 0.999); rotation
-     error against the scene's ground truth; pairs/s.
+     error against the scene's ground truth; pairs/s;
+  5. sequence runner: a synthetic 1241x376 sequence of 33 frames written as
+     8-bit PNGs with a KITTI poses.txt and calib.txt (utils/synthetic.py
+     `write_kitti_sequence`), run through `rpe_tpu_torch.cli.
+     run_kitti_sequence.main` on the card at EstimatorConfig() in chunks of
+     16 pairs with a checkpoint: K1-K4 launched once per chunk and nothing
+     else, every frame decoded natively, every pair valid, rotation error
+     against the scene and ATE/RPE against poses.txt under the limits below,
+     pairs/s and the decode time per chunk; the same runner with
+     device="cpu" on frames 0-3 (equal `valid`, <= 0.5 deg); a resume from
+     the checkpoint (no launch, identical outputs); the inlier-collapse
+     fallback on the card (tests/test_fallback.py's starved config, every
+     pair re-run at orb512 by `estimate_pairs_batched`, adopted pairs
+     holding more inliers); when the card finished each chunk against the
+     host's decode of the next (CUDA events on the host's clock); and one
+     torch.profiler trace of the runner's pair loop (device busy share).
 The line before the last is the kernel JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -67,6 +82,20 @@ FP32_OPS_PER_S = 67e12          # CUDA-core float32
 TF32X3_TC_OPS_PER_S = 494.7e12 / 3  # TF32 tensor cores, three products per
                                     # float32 product (K7, K6-L2)
 INT8_TC_OPS_PER_S = 1979e12     # int8 tensor cores (K3's work as a GEMM)
+
+# Phase 5's sequence: 33 frames, so 32 pairs in two chunks of 16. The motion
+# is short enough that frame 32 still sees all three planes of the scene
+# (the nearest is at Z = 9; make_sequence's default moves ~1 unit and turns
+# 1.5 deg a frame). Poses are in units of one frame's step.
+SEQ_FRAMES, SEQ_CHUNK = 33, 16
+SEQ_STEP, SEQ_ROT_DEG = (0.035, -0.005, 0.1), 0.25
+# Limits of phase 5, about twice what the first card run measured (NVIDIA
+# H100 80GB HBM3, 700 W: max 0.3546 deg, ATE 0.1684, RPE 0.1607 and 0.0579
+# deg; PERF.md, Findings, the KITTI runner):
+SEQ_ROT_GT_DEG = 0.75       # max rotation error of a pair vs the scene
+SEQ_ATE_SIM3 = 0.35         # ATE RMSE after sim3 alignment, in steps
+SEQ_RPE_TRANS = 0.35        # RPE (delta 1) translation RMSE, in steps
+SEQ_RPE_ROT_DEG = 0.12      # RPE (delta 1) rotation RMSE
 
 
 def fail(msg: str) -> None:
@@ -729,6 +758,9 @@ def main() -> None:
                       f"(>= 0.999) over {int(v.sum())} keypoints")
                 del rd
 
+    # ---- 5. sequence runner -----------------------------------------------------
+    summary["sequence runner"] = _runner_phase(torch, np, card, check)
+
     if "--profile" in sys.argv:
         _profile_main_path(torch, np, estimate_sequence_batched,
                            {"ORB": cfg, "SIFT A": cfg_a, "SIFT B": cfg_b},
@@ -745,6 +777,305 @@ def main() -> None:
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def _ckpt_records(path):
+    """A checkpoint's records after its header, in file order."""
+    return [json.loads(x) for x in Path(path).read_text().splitlines()[1:]]
+
+
+def _pair_rotations(np, recs, n):
+    last = {r["pair"]: r for r in recs}
+    return np.array([np.reshape(last[i]["R"], (3, 3)) for i in range(n)]), \
+        [last[i]["valid"] for i in range(n)]
+
+
+def _union_ms(spans):
+    """Length in ms of the union of (start_us, end_us) spans."""
+    total, end = 0.0, -1.0
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def _overlap_ms(spans, a, b):
+    return _union_ms([(max(s, a), min(e, b)) for s, e in spans
+                      if e > a and s < b])
+
+
+def _runner_phase(torch, np, card, check):
+    """Phase 5 (module docstring): the KITTI sequence runner from PNGs on
+    disk. Returns the numbers it printed."""
+    import io
+    import re
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from rpe_tpu_torch.cli import run_kitti_sequence as runner
+    from rpe_tpu_torch.config import EstimatorConfig, MatcherConfig, \
+        OrbConfig, RansacConfig
+    from rpe_tpu_torch.io import image_loader
+    from rpe_tpu_torch.io.image_loader import LazyFrameSource
+    from rpe_tpu_torch.ops import kernels
+    from rpe_tpu_torch.pipeline.batch import FALLBACK_BATCH, BatchProcessor
+    from rpe_tpu_torch.pipeline.estimator import PoseEstimator
+    from rpe_tpu_torch.utils.synthetic import make_sequence, \
+        rotation_error_deg, write_kitti_sequence
+
+    t_phase = time.perf_counter()
+    n_pairs = SEQ_FRAMES - 1
+    n_chunks = -(-n_pairs // SEQ_CHUNK)
+    main_path = ("fast_harris", "extract_brief", "match_hamming",
+                 "five_point_roots")
+    res = {}
+
+    def run(argv, device=None):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = runner.main(argv, device=device)
+        text = buf.getvalue()
+        for line in text.splitlines():
+            if line.strip():
+                say(f"[runner] | {line}")
+        return out, text
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        frames, K, (R_gt, t_gt) = make_sequence(
+            SEQ_FRAMES, H, W, seed=0, step=SEQ_STEP, rot_deg=SEQ_ROT_DEG)
+        images, poses, calib = write_kitti_sequence(tmp, frames, K, R_gt,
+                                                    t_gt)
+        say(f"[runner] wrote {SEQ_FRAMES} frames of {W}x{H} as PNGs, "
+            f"poses.txt and calib.txt in {time.perf_counter() - t0:.1f} s")
+        base = ["--images-dir", str(images), "--poses", str(poses),
+                "--calib", str(calib), "--chunk", str(SEQ_CHUNK)]
+
+        # the runner on the card, with a checkpoint
+        ckpt = tmp / "card.jsonl"
+        torch.cuda.synchronize()
+        image_loader.reset_decodes()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out, text = run(base + ["--checkpoint", str(ckpt),
+                                "--results-dir", str(tmp / "card")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        decodes = dict(image_loader.DECODES)
+        want = {k: n_chunks for k in main_path}
+        check("[runner] launches", launches == want,
+              f"{launches} (want K1-K4 once per chunk of {SEQ_CHUNK} pairs, "
+              f"{want}, and no other kernel)")
+        check("[runner] native decodes",
+              decodes == {"native": SEQ_FRAMES, "pil": 0},
+              f"{decodes} (want all {SEQ_FRAMES} frames by the native "
+              f"decoder)")
+        R_est, valid = _pair_rotations(np, _ckpt_records(ckpt), n_pairs)
+        check("[runner] every pair valid",
+              out["n_pairs_valid"] == n_pairs and all(valid),
+              f"{out['n_pairs_valid']} of {n_pairs} valid")
+        rot = rotation_error_deg(R_est, R_gt[None])
+        check("[runner] rotation vs the scene", rot.max() < SEQ_ROT_GT_DEG,
+              f"max {rot.max():.4f} deg, mean {rot.mean():.4f} (< "
+              f"{SEQ_ROT_GT_DEG})")
+        ate, rpe_t, rpe_r = (out["ate_sim3"]["rmse"], out["rpe_trans"]["rmse"],
+                             out["rpe_rot_deg"]["rmse"])
+        check("[runner] ATE/RPE vs poses.txt",
+              ate < SEQ_ATE_SIM3 and rpe_t < SEQ_RPE_TRANS
+              and rpe_r < SEQ_RPE_ROT_DEG,
+              f"ATE sim3 RMSE {ate:.4f} (< {SEQ_ATE_SIM3}), se3 "
+              f"{out['ate_se3']['rmse']:.4f}; RPE trans RMSE {rpe_t:.4f} (< "
+              f"{SEQ_RPE_TRANS}), rot RMSE {rpe_r:.4f} deg (< "
+              f"{SEQ_RPE_ROT_DEG}); in steps of one frame")
+        m = re.search(r"Throughput: ([\d.]+) pairs/sec/chip", text)
+        stages = {k: (float(ms), int(n)) for k, ms, n in re.findall(
+            r"stage (\w+): ([\d.]+) ms x (\d+)", text)}
+        pps = float(m.group(1)) if m else float("nan")
+        check("[runner] throughput line", m is not None,
+              "the runner printed its ThroughputMeter line")
+        say(f"[runner] throughput (ThroughputMeter, first decode to last "
+            f"flush): {pps} pairs/s over {n_pairs} pairs at chunk "
+            f"{SEQ_CHUNK}, {W}x{H}; whole runner {wall:.3f} s ({card})")
+        say(f"[runner] stages, mean ms x count: {stages} ({card})")
+        res.update(pairs_per_s=pps, runner_s=wall, stages_ms=stages, launches=launches,
+                   rot_err_gt_deg=[float(x) for x in rot],
+                   ate_sim3=ate, ate_se3=out["ate_se3"]["rmse"],
+                   rpe_trans=rpe_t, rpe_rot_deg=rpe_r)
+
+        # the same runner with device="cpu" on frames 0-3
+        t0 = time.perf_counter()
+        cout, _ = run(base + ["--max-frames", "4", "--checkpoint",
+                              str(tmp / "cpu.jsonl"), "--results-dir",
+                              str(tmp / "cpu")], device="cpu")
+        R_cpu, v_cpu = _pair_rotations(np, _ckpt_records(tmp / "cpu.jsonl"),
+                                       3)
+        d_rot = rotation_error_deg(R_est[:3], R_cpu)
+        check("[runner] CUDA vs CPU (frames 0-3)",
+              v_cpu == valid[:3] and bool((d_rot <= 0.5).all()),
+              f"valid cuda {valid[:3]} cpu {v_cpu}, rotation difference "
+              f"(deg) {[float(x) for x in d_rot]} (<= 0.5); CPU run "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # resume from the checkpoint: nothing launched, identical outputs
+        kernels.reset_launches()
+        rout, rtext = run(base + ["--checkpoint", str(ckpt),
+                                  "--results-dir", str(tmp / "resume")])
+        torch.cuda.synchronize()
+        ran = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        same = all((tmp / "card" / f).read_bytes()
+                   == (tmp / "resume" / f).read_bytes()
+                   for f in ("est_poses_kitti.txt",
+                             "trajectory_summary.json"))
+        check("[runner] resume", not ran and rout == out and same
+              and f"Resumed {n_pairs} pairs" in rtext,
+              f"launches {ran} (want none), outputs identical={same}, "
+              f"summary equal={rout == out}")
+
+        # the inlier-collapse fallback on the card (tests/test_fallback.py)
+        weak = EstimatorConfig(
+            orb=OrbConfig(nfeatures=128, nlevels=2, max_kpts=128, band=8,
+                          extract_cap=8),
+            matcher=MatcherConfig(max_matches=64),
+            ransac=RansacConfig(num_hypotheses=64),
+            fallback_profile="orb512", fallback_min_inliers=10 ** 5)
+        paths = sorted(images.glob("*.png"))
+        proc = BatchProcessor(
+            images, PoseEstimator(K, nfeatures=128, max_matches=64,
+                                  config=weak),
+            None, chunk=SEQ_CHUNK, checkpoint_path=tmp / "fallback.jsonl")
+        kernels.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            proc.estimate_relative_poses(list(range(SEQ_FRAMES)),
+                                         LazyFrameSource(paths))
+        torch.cuda.synchronize()
+        ftext = buf.getvalue()
+        fl = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        n_fb = -(-n_pairs // FALLBACK_BATCH)
+        want_fb = {k: n_chunks + n_fb for k in main_path}
+        recs = _ckpt_records(tmp / "fallback.jsonl")
+        first = {r["pair"]: r for r in recs[:n_pairs]}
+        final = {r["pair"]: r for r in recs[n_pairs:]}
+        adopted = [i for i in final if final[i] != first[i]]
+        healthier = all(final[i]["valid"] and final[i]["num_inliers"]
+                        > first[i]["num_inliers"] for i in adopted)
+        check("[runner] fallback on the card",
+              f"Fallback: re-running {n_pairs} collapsed pair(s) at profile "
+              f"orb512" in ftext and fl == want_fb and len(adopted) > 0
+              and healthier,
+              f"launches {fl} (want {want_fb}: {n_chunks} chunks, then "
+              f"{n_fb} orb512 batches of {FALLBACK_BATCH} pairs), "
+              f"{len(adopted)} of {n_pairs} pairs adopted, each with more "
+              f"inliers={healthier}; inliers before "
+              f"{[first[i]['num_inliers'] for i in sorted(first)]} after "
+              f"{[final[i]['num_inliers'] for i in sorted(final)]}")
+
+        # when did the card finish each chunk, against the host's decode of
+        # the next? An event recorded after each dispatch, on the host's
+        # clock through an event taken on the idle card; no profiler.
+        import rpe_tpu_torch.pipeline.batch as batch_mod
+
+        done, decodes_at = [], []
+
+        class TimedSource(LazyFrameSource):
+            def get(self, indices):
+                a = time.perf_counter()
+                out = super().get(indices)
+                decodes_at.append((a, time.perf_counter()))
+                return out
+
+        def timed(*a, **k):
+            out = dispatch(*a, **k)
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            done.append((e, time.perf_counter()))
+            return out
+
+        proc = BatchProcessor(images, PoseEstimator(K), None,
+                              chunk=SEQ_CHUNK)
+        dispatch = batch_mod.estimate_sequence_batched
+        e0 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        batch_mod.estimate_sequence_batched = timed
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                proc.estimate_relative_poses(list(range(SEQ_FRAMES)),
+                                             TimedSource(paths))
+        finally:
+            batch_mod.estimate_sequence_batched = dispatch
+        torch.cuda.synchronize()
+        overlap = []
+        for c, (e, returned) in enumerate(done[:-1]):
+            finished = h0 + e0.elapsed_time(e) / 1e3
+            a, b = decodes_at[c + 1]
+            o = dict(chunk=c, dispatch_returned_ms=(returned - h0) * 1e3,
+                     card_finished_ms=(finished - h0) * 1e3,
+                     next_decode_ms=[(a - h0) * 1e3, (b - h0) * 1e3],
+                     hidden_ms=max(0.0, min(finished, b) - a) * 1e3)
+            overlap.append(o)
+            say(f"[runner] chunk {c}: dispatch returned at "
+                f"{o['dispatch_returned_ms']:.3f} ms, the card finished it at "
+                f"{o['card_finished_ms']:.3f} ms; decode of chunk {c + 1} "
+                f"{o['next_decode_ms'][0]:.3f}-{o['next_decode_ms'][1]:.3f} "
+                f"ms, {o['hidden_ms']:.3f} ms of it beside the card's work "
+                f"(ms from the loop's start; {card})")
+        res["overlap"] = overlap
+
+        # one trace of the pair loop: the card's busy share
+        proc = BatchProcessor(images, PoseEstimator(K), None,
+                              chunk=SEQ_CHUNK)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with contextlib.redirect_stdout(io.StringIO()):
+                proc.estimate_relative_poses(list(range(SEQ_FRAMES)),
+                                             LazyFrameSource(paths))
+            torch.cuda.synchronize()
+        evs = prof.events()
+
+        def on_card(e):
+            return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+        # device work only: the stage ranges (StageTimer's record_function)
+        # also show on the device's timeline, spanning the work they launch
+        stages = ("decode", "stage", "dispatch", "flush")
+        dev_spans = [(e.time_range.start, e.time_range.end) for e in evs
+                     if on_card(e) and e.name not in stages]
+        host = [(e.time_range.start, e.time_range.end) for e in evs
+                if e.name in stages and not on_card(e)]
+        loop = (min(a for a, _ in host), max(b for _, b in host))
+        busy = _overlap_ms(dev_spans, *loop)
+        loop_ms = (loop[1] - loop[0]) / 1e3
+        say(f"[runner] trace: pair loop {loop_ms:.1f} ms (profiled), device "
+            f"busy {busy:.1f} ms of it ({100 * busy / loop_ms:.1f}%), "
+            f"{len(dev_spans)} device events ({card})")
+        # host calls that wait for the card (a copy from pageable host
+        # memory waits for the stream before it starts), and the device
+        # time by kernel
+        waits = {}
+        for e in evs:
+            if e.name.startswith(("cudaStreamSynchronize",
+                                  "cudaDeviceSynchronize", "cudaMemcpy",
+                                  "cudaEventSynchronize")):
+                waits[e.name] = waits.get(e.name, 0) + 1
+        say(f"[runner] trace: host runtime calls that can wait for the card: "
+            f"{waits}")
+        table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=20)
+        (OUT_DIR / "profile_runner.txt").write_text(table)
+        for line in table.splitlines()[:14]:
+            say(f"[runner] profile| {line}")
+        res.update(trace_loop_ms=loop_ms, trace_device_busy_ms=busy,
+                   trace_waits=waits)
+    res["phase_s"] = time.perf_counter() - t_phase
+    say(f"[runner] phase: {res['phase_s']:.1f} s")
+    return res
 
 
 @contextlib.contextmanager

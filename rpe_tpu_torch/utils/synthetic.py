@@ -5,6 +5,9 @@ strips of frame 0 at different depths. Every later frame renders each strip
 through its plane-induced homography under a constant per-frame motion
 X_{i+1} = R X_i + t, so every consecutive pair has ground truth (R, t) in
 the estimator's convention (x2 ~ R x1 + t). numpy only; made from a seed.
+`write_kitti_sequence` writes such a sequence to disk in the KITTI layout,
+its PNGs by a stdlib zlib writer (`write_png`), so no imaging library is
+needed.
 """
 
 from __future__ import annotations
@@ -111,3 +114,102 @@ def rotation_error_deg(R_a, R_b):
     R_b = np.asarray(R_b, dtype=np.float64)
     tr = np.einsum("...ij,...ij->...", R_a, R_b)
     return np.degrees(np.arccos(np.clip((tr - 1.0) / 2.0, -1.0, 1.0)))
+
+
+# ---------------------------------------------------------------------------
+# Writing a sequence to disk (stdlib zlib + struct; no PIL needed)
+# ---------------------------------------------------------------------------
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    import struct
+    import zlib
+
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _filter_rows(rows, bpp: int) -> bytes:
+    """PNG-filter (H, row_bytes) uint8 scanlines, row r with filter type
+    r % 5 (None, Sub, Up, Average, Paeth), so a decoder meets all five."""
+    x = rows.astype(np.int32)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]                      # left
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]                                 # up
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]                    # upper left
+    preds = [np.zeros_like(x), a, b, (a + b) // 2, _paeth(a, b, c)]
+    out = bytearray()
+    for r in range(x.shape[0]):
+        f = r % 5
+        out.append(f)
+        out += ((x[r] - preds[f][r]) & 0xFF).astype(np.uint8).tobytes()
+    return bytes(out)
+
+
+def write_png(path, img, palette=None) -> None:
+    """Write an 8-bit PNG: (H, W) gray, (H, W, 3) RGB, or (H, W) indices
+    into `palette` ((N, 3) uint8 RGB, N <= 256)."""
+    import struct
+    import zlib
+
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"write_png takes uint8 pixels, got {img.dtype}")
+    if palette is not None:
+        ctype, bpp = 3, 1
+    elif img.ndim == 3 and img.shape[2] == 3:
+        ctype, bpp = 2, 3
+    elif img.ndim == 2:
+        ctype, bpp = 0, 1
+    else:
+        raise ValueError(f"unsupported image shape {img.shape}")
+    h, w = img.shape[:2]
+    body = _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+    if palette is not None:
+        body += _png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    raw = _filter_rows(img.reshape(h, w * bpp), bpp)
+    body += _png_chunk(b"IDAT", zlib.compress(raw, 6))
+    body += _png_chunk(b"IEND", b"")
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + body)
+
+
+def kitti_poses(R, t, n_frames: int):
+    """Camera-to-world poses (n_frames, 4, 4) of a constant per-frame motion
+    x_{i+1} = R x_i + t, frame 0 at the identity (the world frame)."""
+    step = np.eye(4)
+    step[:3, :3] = np.asarray(R, np.float64).T
+    step[:3, 3] = -np.asarray(R, np.float64).T @ np.asarray(t, np.float64)
+    poses = [np.eye(4)]
+    for _ in range(n_frames - 1):
+        poses.append(poses[-1] @ step)
+    return np.stack(poses)
+
+
+def write_kitti_sequence(root, frames, K, R, t):
+    """Write a sequence in the KITTI odometry layout under `root`:
+    image_0/000000.png ... (8-bit grayscale, frames rounded and clipped),
+    poses.txt (the camera-to-world poses of `kitti_poses`, 12 values a line)
+    and calib.txt (P0 = [K | 0]). Returns (images dir, poses, calib)."""
+    from pathlib import Path
+
+    root = Path(root)
+    images = root / "image_0"
+    images.mkdir(parents=True, exist_ok=True)
+    for i, f in enumerate(np.asarray(frames)):
+        write_png(images / f"{i:06d}.png",
+                  np.clip(np.rint(f), 0, 255).astype(np.uint8))
+    poses = kitti_poses(R, t, len(frames))
+    np.savetxt(root / "poses.txt", poses[:, :3, :].reshape(len(poses), 12),
+               fmt="%.9e")
+    P0 = np.concatenate([np.asarray(K, np.float64), np.zeros((3, 1))], 1)
+    (root / "calib.txt").write_text(
+        "P0: " + " ".join(f"{v:.12e}" for v in P0.reshape(-1)) + "\n")
+    return images, root / "poses.txt", root / "calib.txt"

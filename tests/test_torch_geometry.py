@@ -103,14 +103,15 @@ def test_epipolar_blocks_match_reference(matches):
     np.testing.assert_allclose(dt, dj, rtol=1e-4, atol=1e-12)
 
 
-def _jax_ransac(matches, degensac, num_hypotheses=128, pairs=None):
+def _jax_ransac(matches, degensac, num_hypotheses=128, pairs=None,
+                solver="5pt"):
     n1, n2, mv, thr, keys = matches
     out = []
     for i in (range(len(PAIRS)) if pairs is None else pairs):
         r = jran.ransac_essential(jnp.asarray(keys[i]), jnp.asarray(n1[i]),
                                   jnp.asarray(n2[i]), jnp.asarray(mv[i]),
                                   thr[i], num_hypotheses=num_hypotheses,
-                                  solver="5pt", degensac=degensac)
+                                  solver=solver, degensac=degensac)
         out.append({k: np.asarray(v) for k, v in r.items()})
     return {k: np.stack([o[k] for o in out]) for k in out[0]}
 
@@ -124,6 +125,32 @@ def test_ransac_essential_matches_reference(matches, degensac):
                                 _t(n1[sel]), _t(n2[sel]), _t(mv[sel]),
                                 _t(thr[sel]), num_hypotheses=128,
                                 solver="5pt", degensac=degensac)
+    np.testing.assert_array_equal(ref["ok"], got["ok"].numpy())
+    np.testing.assert_array_equal(ref["inlier_mask"],
+                                  got["inlier_mask"].numpy())
+    np.testing.assert_array_equal(ref["num_inliers"],
+                                  got["num_inliers"].numpy())
+    _assert_E_close(ref["E"], got["E"].numpy())
+
+
+@pytest.mark.parametrize("degensac", [False, True])
+def test_ransac_essential_8pt_matches_reference(matches, degensac):
+    """The 8-point solver (the KITTI runner's --solver 8pt) with its refit
+    rounds, on the same matches and keys, held to the 5-point test's exact
+    contract on the two clean pairs. Pair 150->165 is left out in both
+    modes: a few of its 128 minimal 8-point solves (ill-conditioned
+    samples, e.g. a match drawn twice) differ in float32 by up to 0.02 in
+    E, as a few in every pair do, and on this flat-likelihood pair one of
+    them changes the winner (129 against 132 inliers); ROADMAP.md, Known
+    divergences."""
+    n1, n2, mv, thr, keys = matches
+    sel = [1, 2]
+    ref = _jax_ransac(matches, degensac, pairs=sel, solver="8pt")
+    got = tran.ransac_essential(convert.keys_from_numpy(keys[sel]),
+                                _t(n1[sel]), _t(n2[sel]), _t(mv[sel]),
+                                _t(thr[sel]), num_hypotheses=128,
+                                solver="8pt", degensac=degensac)
+    assert ref["ok"].all()
     np.testing.assert_array_equal(ref["ok"], got["ok"].numpy())
     np.testing.assert_array_equal(ref["inlier_mask"],
                                   got["inlier_mask"].numpy())

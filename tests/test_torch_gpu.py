@@ -9,6 +9,7 @@ jax nor rpe_tpu, so it also runs where only the port is installed:
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -617,3 +618,40 @@ def test_sift_entry_points_run_on_the_card(scene, cuda):
     assert rotation_error_deg(R, R_gt) < 2.0 and t.shape == (3, 1)
     assert kernels.LAUNCHES["match_l2"] == 3
     assert kernels.LAUNCHES["match_hamming"] == 0
+
+
+def test_kitti_runner_decodes_and_estimates_on_the_card(cuda, tmp_path):
+    """The sequence runner from written PNGs on the card: every frame
+    decoded natively, one launch each of K1-K4 per chunk (5 frames, chunk
+    2: two chunks), every pair valid, and its per-pair poses within 0.5 deg
+    of a CPU run's."""
+    from rpe_tpu_torch.cli import run_kitti_sequence
+    from rpe_tpu_torch.io import image_loader
+    from rpe_tpu_torch.utils.synthetic import write_kitti_sequence
+
+    frames, K, (R, t) = make_sequence(5, 240, 480, seed=2)
+    images, poses, calib = write_kitti_sequence(tmp_path, frames, K, R, t)
+    args = ["--images-dir", str(images), "--poses", str(poses), "--calib",
+            str(calib), "--chunk", "2", "--nfeatures", "512"]
+    image_loader.reset_decodes()
+    kernels.reset_launches()
+    out = run_kitti_sequence.main(args + [
+        "--results-dir", str(tmp_path / "card"),
+        "--checkpoint", str(tmp_path / "card.jsonl")])
+    assert image_loader.DECODES == {"native": 5, "pil": 0}
+    assert {k: n for k, n in kernels.LAUNCHES.items() if n} == {
+        "fast_harris": 2, "extract_brief": 2, "match_hamming": 2,
+        "five_point_roots": 2}, kernels.LAUNCHES
+    assert out["n_pairs_valid"] == 4
+    cpu = run_kitti_sequence.main(args + [
+        "--results-dir", str(tmp_path / "cpu"),
+        "--checkpoint", str(tmp_path / "cpu.jsonl")], device="cpu")
+    assert cpu["n_pairs_valid"] == 4
+
+    def rotations(path):
+        recs = [json.loads(x) for x in path.read_text().splitlines()[1:]]
+        return np.array([np.reshape(r["R"], (3, 3)) for r in
+                         sorted(recs, key=lambda r: r["pair"])])
+
+    assert rotation_error_deg(rotations(tmp_path / "card.jsonl"),
+                              rotations(tmp_path / "cpu.jsonl")).max() <= 0.5

@@ -27,6 +27,7 @@ from rpe_tpu_torch.ops.orb import _ic_angle_masks
 from rpe_tpu_torch.pipeline import estimator as test_
 from rpe_tpu_torch.utils.synthetic import make_sequence, rotation_error_deg
 from torch_gates import default_extraction_gates  # noqa: F401
+from torch_gates import one_torch_thread  # noqa: F401
 
 H, W = 160, 320
 ROOT = Path(__file__).resolve().parents[1]
@@ -103,9 +104,8 @@ def test_ratio_matches_on_reference_detections(reference_detections):
                                       err_msg=k)
 
 
-def test_sequence_slice_matches_reference(scene):
+def _hold_sequence_slice(scene, jc, tc):
     frames, K, R_gt, keys = scene
-    jc, tc = _cfgs()
     ref = {k: np.asarray(v) for k, v in jest.estimate_sequence_batched(
         jnp.asarray(frames), jnp.asarray(K), jnp.asarray(keys),
         cfg=jc).items()}
@@ -117,6 +117,19 @@ def test_sequence_slice_matches_reference(scene):
     assert got["valid"].all()
     assert rotation_error_deg(got["R"], ref["R"]).max() < 0.5
     assert rotation_error_deg(got["R"], R_gt[None]).max() < 2.0
+
+
+def test_sequence_slice_matches_reference(scene):
+    _hold_sequence_slice(scene, *_cfgs())
+
+
+@pytest.mark.parametrize("profile", ["orb1000", "orb512"])
+def test_sequence_slice_matches_reference_at_profiles(scene, profile):
+    """The work-cut profiles (band 8, fewer levels and keypoints; orb512
+    also 256 matches and 128 hypotheses) end to end, with the contracts of
+    the test above."""
+    _hold_sequence_slice(scene, jcfg.profile_config(profile),
+                         tcfg.profile_config(profile))
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch, scene):

@@ -174,8 +174,49 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "rpe_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    subpackages = {f.relative_to(ROOT / "rpe_tpu_torch").parts[0]
+                   for f in files[:-1]}
+    assert {"io", "cli", "pipeline", "geometry", "ops",
+            "utils"} <= subpackages
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "rpe_tpu", "flax"), (f, mod)
         assert "import jax" not in f.read_text(), f
+
+
+def _code_strings(path):
+    """String constants of a module that are not docstrings."""
+    tree = ast.parse(path.read_text())
+    docs = set()
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                              ast.AsyncFunctionDef)) and body
+                and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)):
+            docs.add(id(body[0].value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def test_port_keeps_its_own_decoder_and_no_path_into_the_reference():
+    """rpe_tpu_torch/io/ holds its own loader.cpp (the reference's source
+    below the header), and no code string or #include under rpe_tpu_torch/
+    names a path inside rpe_tpu/."""
+    import re
+
+    mine = (ROOT / "rpe_tpu_torch/io/native/loader.cpp").read_text()
+    ref = (ROOT / "rpe_tpu/io/native/loader.cpp").read_text()
+    cut = "#include <zlib.h>"
+    assert mine[mine.index(cut):] == ref[ref.index(cut):]
+    into_ref = re.compile(r"(?<![\w])rpe_tpu[/\\]")
+    for f in sorted((ROOT / "rpe_tpu_torch").rglob("*.py")):
+        for text in _code_strings(f):
+            assert not into_ref.search(text), (f, text)
+    for pattern in ("*.cu", "*.cuh", "*.cpp"):
+        for f in (ROOT / "rpe_tpu_torch").rglob(pattern):
+            for line in f.read_text().splitlines():
+                if line.lstrip().startswith("#include"):
+                    assert "rpe_tpu" not in line, (f, line)

@@ -1,6 +1,7 @@
-"""An autouse fixture for the rpe_tpu_torch test files that run ORB:
+"""Autouse fixtures for the rpe_tpu_torch test files that run ORB:
 
     from torch_gates import default_extraction_gates  # noqa: F401
+    from torch_gates import one_torch_thread  # noqa: F401
 
 The port reads the reference's extraction gates from the environment at
 call time, and some of the reference's tests set them and leave them set
@@ -12,6 +13,7 @@ import os
 import re
 
 import pytest
+import torch
 
 _GATE = re.compile(r"RPE_(.*EXTRACT.*|PALLAS_.*|NO_.*|BRIEF.*)")
 
@@ -26,3 +28,16 @@ def default_extraction_gates():
             if _GATE.fullmatch(name):
                 mp.delenv(name, raising=False)
         yield
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Runs the module's CPU torch work on one thread and puts the count
+    back after it. The suite runs one file per worker, several at once, and
+    PyTorch's default of a thread per core in every worker oversubscribes
+    the cores; the port's small CPU shapes also run faster on one thread
+    (tests/test_torch_pipeline.py: 88 s against ~110 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
