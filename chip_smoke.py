@@ -56,7 +56,29 @@ Phases (any failure exits non-zero before the final line):
      pair re-run at orb512 by `estimate_pairs_batched`, adopted pairs
      holding more inliers); when the card finished each chunk against the
      host's decode of the next (CUDA events on the host's clock); and one
-     torch.profiler trace of the runner's pair loop (device busy share).
+     torch.profiler trace of the runner's pair loop (device busy share);
+  6. VP (Manhattan) refinement and the dataset runners: a synthetic
+     1241x376 Manhattan room of 17 frames (utils/synthetic.py
+     `manhattan_sequence` at `GATED_ROOM`, drawn through the runner's
+     default intrinsics, the camera turning 0.25 deg a frame) written as
+     PNGs in the simulator layout, run through `rpe_tpu_torch.cli.
+     run_simulator_data.main` on the card at its defaults (VP on, the host
+     twin, chunk 16): K1-K4 once per chunk and nothing else, every pair
+     valid, the default VP gates passing on every frame, rotation error
+     against the scene under VP_ROT_GT_DEG, the CSV and the plot written;
+     the same with RPE_VP_DEVICE=1 (set for the run, restored after): the
+     same per-frame gate decisions as the host twin's; frames 0-3 through
+     the same runner with device="cpu" (equal `valid`, gate decisions and
+     `vp_used`, <= 0.5 deg) and the share of pixels whose labels differ
+     between the card and the CPU; `run_single_pair.main` on two of the
+     PNGs; `PoseEstimator.estimate_with_debug` with R_prev on the card
+     against the CPU (equal `vp_used` and VP statistics, the refined R no
+     further apart than the plain poses + 1e-4 rad) and
+     `refine_rotation_with_vps` from one start on both (R within 1e-4
+     rad); the labeling of
+     one block of 8 frames, the host segments and voting, and the device
+     twin per block (CUDA events or the host clock after a synchronise),
+     the labeling's device launches (torch.profiler), and pairs/s with VP.
 The line before the last is the kernel JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -96,6 +118,12 @@ SEQ_ROT_GT_DEG = 0.75       # max rotation error of a pair vs the scene
 SEQ_ATE_SIM3 = 0.35         # ATE RMSE after sim3 alignment, in steps
 SEQ_RPE_TRANS = 0.35        # RPE (delta 1) translation RMSE, in steps
 SEQ_RPE_ROT_DEG = 0.12      # RPE (delta 1) rotation RMSE
+# Phase 6's Manhattan room: 17 frames, one chunk of 16 pairs. The VP
+# refinement replaces a pair's rotation by one aligned to vanishing points
+# quantised to 1-degree accumulator bins, so its error against the scene is
+# that of the bins, not of the 5-point pose.
+VP_FRAMES, VP_CHUNK = 17, 16
+VP_ROT_GT_DEG = 2.0         # max rotation error of a pair vs the scene
 
 
 def fail(msg: str) -> None:
@@ -761,6 +789,10 @@ def main() -> None:
     # ---- 5. sequence runner -----------------------------------------------------
     summary["sequence runner"] = _runner_phase(torch, np, card, check)
 
+    # ---- 6. VP refinement and the dataset runners -------------------------------
+    summary["vp runners"] = _vp_phase(torch, np, card, check,
+                                      summary["sequence runner"])
+
     if "--profile" in sys.argv:
         _profile_main_path(torch, np, estimate_sequence_batched,
                            {"ORB": cfg, "SIFT A": cfg_a, "SIFT B": cfg_b},
@@ -1075,6 +1107,313 @@ def _runner_phase(torch, np, card, check):
                    trace_waits=waits)
     res["phase_s"] = time.perf_counter() - t_phase
     say(f"[runner] phase: {res['phase_s']:.1f} s")
+    return res
+
+
+def _vp_phase(torch, np, card, check, phase5):
+    """Phase 6 (module docstring): VP refinement through the simulator
+    runner, both twins, the CPU cross-check, the single-pair entry points
+    and the VP stage's times. Returns the numbers it printed."""
+    import io
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from rpe_tpu_torch.cli import run_simulator_data, run_single_pair
+    from rpe_tpu_torch.config import VpConfig
+    from rpe_tpu_torch.geometry import vp_refine
+    from rpe_tpu_torch.io.image_loader import load_image
+    from rpe_tpu_torch.ops import kernels, lsd
+    from rpe_tpu_torch.pipeline.batch import BatchProcessor
+    from rpe_tpu_torch.pipeline.estimator import PoseEstimator
+    from rpe_tpu_torch.pipeline.calibration import CameraCalibration
+    from rpe_tpu_torch.utils.synthetic import GATED_ROOM, \
+        manhattan_sequence, rot_y, rotation_error_deg, write_dataset
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    main_path = ("fast_harris", "extract_brief", "match_hamming",
+                 "five_point_roots")
+    cfg = VpConfig(enabled=True)
+    res = {}
+
+    def reliable(entry):
+        _, ok, dbg = entry
+        return bool(ok and dbg.get("acc_max", 0.0) >= cfg.acc_min
+                    and dbg.get("vp2_score", 0.0) >= cfg.vp2_min)
+
+    # each run's BatchProcessor, its VP stats and its sequence wall time
+    procs = []
+    process_sequence = BatchProcessor.process_sequence
+
+    def keep(self, frame_indices):
+        t0 = time.perf_counter()
+        out = process_sequence(self, frame_indices)
+        if self.pose_estimator.device.type == "cuda":
+            torch.cuda.synchronize()
+        procs.append((self, time.perf_counter() - t0))
+        return out
+
+    def run(main, argv, device=None, env=None):
+        old = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                out = main(argv, device=device)
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        text = buf.getvalue()
+        for line in text.splitlines():
+            if line.strip() and ("[INFO] VP" in line or "Throughput" in line
+                                 or "Mean:" in line or "Max:" in line):
+                say(f"[vp] | {line}")
+        return out, text
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        # drawn through the intrinsics the simulator runner assumes (no
+        # calibration file: the base intrinsics scaled to the frame size)
+        frames, K, S, yaw, centres = manhattan_sequence(
+            VP_FRAMES, H, W, seed=0,
+            K=CameraCalibration().get_matrix(W, H), **GATED_ROOM)
+        data = tmp / "evaluation-runs/simulator-data/data"
+        write_dataset(data, frames, yaw, centres)
+        small = tmp / "cpu"
+        write_dataset(small / "evaluation-runs/simulator-data/data",
+                      frames[:4], yaw[:4], centres[:4])
+        say(f"[vp] wrote a Manhattan room of {VP_FRAMES} frames of {W}x{H} "
+            f"in the simulator layout in {time.perf_counter() - t0:.1f} s")
+        argv = ["--step", "1", "--chunk", str(VP_CHUNK), "--no-video"]
+        BatchProcessor.process_sequence = keep
+        try:
+            runs = {}
+            for twin, env in (("host", None), ("device", {"RPE_VP_DEVICE":
+                                                          "1"})):
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                out, text = run(run_simulator_data.main,
+                                ["--data-root", str(tmp), "--results-dir",
+                                 str(tmp / twin)] + argv, env=env)
+                torch.cuda.synchronize()
+                launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+                proc, wall = procs[-1]
+                runs[twin] = out, text, proc, wall, launches
+            cout, _ = run(run_simulator_data.main,
+                          ["--data-root", str(small), "--results-dir",
+                           str(tmp / "cpu_out")] + argv, device="cpu")
+            cproc = procs[-1][0]
+        finally:
+            BatchProcessor.process_sequence = process_sequence
+
+        n_pairs = VP_FRAMES - 1
+        want = {k: 1 for k in main_path}
+        for twin, (out, text, proc, wall, launches) in runs.items():
+            est, ev = out["estimated"], out["evaluation"]
+            check(f"[vp {twin}] launches", launches == want,
+                  f"{launches} (want K1-K4 once for the one chunk of "
+                  f"{VP_CHUNK} pairs, and no other kernel)")
+            check(f"[vp {twin}] every pair valid", bool(est["valid"].all())
+                  and len(est["valid"]) == n_pairs,
+                  f"{int(est['valid'].sum())} of {n_pairs} valid")
+            acc = [e[2].get("acc_max", 0.0) for e in proc.vp_frames]
+            vp2 = [e[2].get("vp2_score", 0.0) for e in proc.vp_frames]
+            gates = [reliable(e) for e in proc.vp_frames]
+            check(f"[vp {twin}] default gates pass on every frame",
+                  len(gates) == VP_FRAMES and all(gates),
+                  f"{sum(gates)} of {VP_FRAMES} frames reliable; lowest "
+                  f"acc_max {min(acc):.1f} (>= {cfg.acc_min}), lowest "
+                  f"vp2_score {min(vp2):.1f} (>= {cfg.vp2_min})")
+            say(f"[vp {twin}] acc_max per frame: "
+                f"{[round(a, 1) for a in acc]}")
+            say(f"[vp {twin}] vp2_score per frame: "
+                f"{[round(v, 1) for v in vp2]}")
+            used = int(proc.vp_used.sum())
+            say(f"[vp {twin}] VP refinement used on {used} of {n_pairs} "
+                f"pairs: {proc.vp_used.astype(int).tolist()}")
+            rot = np.asarray(ev["rotation_error"])
+            check(f"[vp {twin}] rotation vs the scene",
+                  bool(rot.max() < VP_ROT_GT_DEG),
+                  f"max {rot.max():.4f} deg, mean {rot.mean():.4f} (< "
+                  f"{VP_ROT_GT_DEG})")
+            csv_path = tmp / twin / "evaluation_results.csv"
+            lines = csv_path.read_text().splitlines()
+            check(f"[vp {twin}] artifacts",
+                  len(lines) == n_pairs + 1
+                  and len(lines[0].split(",")) == 12
+                  and (tmp / twin / "orientation_plot.html").is_file(),
+                  f"evaluation_results.csv {len(lines) - 1} rows x "
+                  f"{len(lines[0].split(','))} columns, "
+                  f"orientation_plot.html written")
+            vp_ms = proc.timer.totals.get("vp", 0.0) * 1e3
+            say(f"[vp {twin}] process_sequence {wall * 1e3:.1f} ms "
+                f"(synchronised), {n_pairs / wall:.3f} pairs/s with VP; VP "
+                f"stage {vp_ms:.1f} ms in {proc.timer.counts.get('vp', 0)} "
+                f"blocks of 8 frames ({100 * vp_ms / (wall * 1e3):.1f}% of "
+                f"the sequence; {card})")
+            res[twin] = dict(
+                launches=launches, used=proc.vp_used.tolist(),
+                acc_max=acc, vp2_score=vp2, rot_err_gt_deg=rot.tolist(),
+                pairs_per_s=n_pairs / wall, sequence_ms=wall * 1e3,
+                vp_ms=vp_ms)
+        host_p, dev_p = runs["host"][2], runs["device"][2]
+        g_host = [reliable(e) for e in host_p.vp_frames]
+        g_dev = [reliable(e) for e in dev_p.vp_frames]
+        check("[vp] device twin against host twin", g_host == g_dev,
+              f"per-frame gate decisions host {g_host} device {g_dev}")
+        say(f"[vp] host-twin pairs/s with VP {res['host']['pairs_per_s']:.3f}"
+            f", phase 5's runner without VP {phase5['pairs_per_s']} (its "
+            f"ThroughputMeter; {card})")
+
+        # the CPU on frames 0-3
+        c_est = cout["estimated"]
+        h_est = runs["host"][0]["estimated"]
+        d_rot = rotation_error_deg(np.stack(h_est["R"][:3]),
+                                   np.stack(c_est["R"]))
+        g_cpu = [reliable(e) for e in cproc.vp_frames]
+        check("[vp] CUDA vs CPU (frames 0-3)",
+              bool((c_est["valid"] == h_est["valid"][:3]).all())
+              and g_cpu == g_host[:4]
+              and cproc.vp_used.tolist() == host_p.vp_used[:3].tolist()
+              and bool((d_rot <= 0.5).all()),
+              f"valid cuda {h_est['valid'][:3].tolist()} cpu "
+              f"{c_est['valid'].tolist()}, gates cuda {g_host[:4]} cpu "
+              f"{g_cpu}, vp_used cuda {host_p.vp_used[:3].tolist()} cpu "
+              f"{cproc.vp_used.tolist()}, rotation difference (deg) "
+              f"{[float(x) for x in d_rot]} (<= 0.5)")
+        g0 = torch.from_numpy(np.clip(np.rint(frames[0]), 0, 255)
+                              .astype(np.float32))
+        lab_card = lsd._label_regions(g0.to(dev))[0].cpu()
+        lab_cpu = lsd._label_regions(g0)[0]
+        differ = int((lab_card != lab_cpu).sum())
+        say(f"[vp] labels of frame 0: {differ} of {lab_cpu.numel()} pixels "
+            f"differ between the card and the CPU "
+            f"({differ / lab_cpu.numel():.8f})")
+        res["label_differ_px"] = differ
+        res["label_px"] = lab_cpu.numel()
+
+        # the single-pair entry points
+        images = data / "images"
+        (R1, t1), _ = run(run_single_pair.main,
+                          ["--img1", str(images / "000000.png"), "--img2",
+                           str(images / "000001.png")])
+        check("[vp] run_single_pair on the card",
+              R1.shape == (3, 3) and bool(np.isfinite(R1).all())
+              and t1.shape == (3, 1),
+              f"R error vs the scene {rotation_error_deg(R1, S):.4f} deg "
+              f"(VP on, no R_prev: the plain pose)")
+        img1 = load_image(str(images / "000004.png"))
+        img2 = load_image(str(images / "000005.png"))
+        R_prev = rot_y(float(yaw[4]))
+        plain, outs = {}, {}
+        for d in ("cuda", "cpu"):
+            plain[d] = PoseEstimator(K, use_vp_refinement=True, device=d) \
+                .estimate_with_debug(img1, img2)
+            outs[d] = PoseEstimator(K, use_vp_refinement=True, device=d) \
+                .estimate_with_debug(img1, img2, R_prev)
+        # the host twin's LM (the reference's, 12 steps) does not contract
+        # two nearby starts onto one point, so the card's and the CPU's
+        # refined R differ by about as much as their plain poses do; with
+        # the same start, VP on the card gives the CPU's R
+        d_plain = float(np.radians(rotation_error_deg(plain["cuda"]["R"],
+                                                      plain["cpu"]["R"])))
+        d_ref = float(np.radians(rotation_error_deg(outs["cuda"]["R"],
+                                                    outs["cpu"]["R"])))
+        stats = {d: [(o["vp_debug"][r].get("acc_max", 0.0),
+                      o["vp_debug"][r].get("vp2_score", 0.0))
+                     for r in ("prev_frame", "new_frame")]
+                 for d, o in outs.items()}
+        cost = {d: o["vp_debug"].get("optimization", {}).get(
+            "cost_opt", float("nan")) for d, o in outs.items()}
+        same_stats = np.allclose(stats["cuda"], stats["cpu"], rtol=1e-9,
+                                 atol=0)
+        check("[vp] PoseEstimator with R_prev, card vs CPU",
+              outs["cuda"]["vp_used"] == outs["cpu"]["vp_used"]
+              and same_stats and d_ref <= d_plain + 1e-4,
+              f"vp_used card {outs['cuda']['vp_used']} cpu "
+              f"{outs['cpu']['vp_used']}; VP statistics (acc_max, "
+              f"vp2_score per role) card {stats['cuda']} cpu "
+              f"{stats['cpu']}; refined R difference {d_ref:.3e} rad, "
+              f"plain poses' {d_plain:.3e} rad (refined <= plain + 1e-4); "
+              f"cost_opt card {cost['cuda']:.3e} cpu {cost['cpu']:.3e}")
+        R_rel = plain["cpu"]["R"]
+        same = {d: vp_refine.refine_rotation_with_vps(
+            img1, img2, R_prev, R_rel, K, cfg, device=d) for d in
+            ("cuda", "cpu")}
+        d_same = float(np.radians(rotation_error_deg(same["cuda"][0],
+                                                     same["cpu"][0])))
+        check("[vp] refine_rotation_with_vps, card vs CPU, same start",
+              same["cuda"][1] == same["cpu"][1] and d_same < 1e-4,
+              f"used card {same['cuda'][1]} cpu {same['cpu'][1]}, R "
+              f"difference {d_same:.3e} rad (< 1e-4)")
+        res.update(pose_estimator_d_refined_rad=d_ref,
+                   pose_estimator_d_plain_rad=d_plain,
+                   refine_same_start_d_rad=d_same)
+
+        # times of the VP stage per block of 8 frames
+        blk_np = np.clip(np.rint(frames[:8]), 0, 255).astype(np.float32)
+        blk = torch.from_numpy(blk_np).to(dev)
+        K64 = K.astype(np.float64)
+
+        def events_ms(fn, reps=5):
+            fn()
+            torch.cuda.synchronize()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            for _ in range(reps):
+                fn()
+            e.record()
+            torch.cuda.synchronize()
+            return s.elapsed_time(e) / reps
+
+        def host_ms(fn, reps=3):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / reps * 1e3
+
+        label_ms = events_ms(lambda: lsd._label_regions(blk))
+        labels, mags = lsd.label_regions_host(blk_np, device=dev)
+
+        def voting():
+            for f in range(8):
+                vp_refine._dirs_from_lines(
+                    lsd.segments_from_labels(labels[f], mags[f]), K64, cfg,
+                    rng_seed=f)
+
+        seg_ms = host_ms(voting)
+        host_twin_ms = host_ms(lambda: vp_refine.manhattan_dirs_for_frames(
+            blk_np, K64, cfg, device=dev))
+        dev_twin_ms = host_ms(
+            lambda: vp_refine.manhattan_dirs_for_frames_device(
+                blk_np, K64, cfg, device=dev))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            lsd._label_regions(blk)
+            torch.cuda.synchronize()
+        n_dev = sum(1 for e in prof.events()
+                    if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        say(f"[vp] one block of 8 frames of {W}x{H}: labeling "
+            f"{label_ms:.3f} ms (CUDA events, {lsd.PROP_ITERS} rounds), "
+            f"{n_dev} device events in the labeling (torch.profiler); host "
+            f"segments + voting {seg_ms:.1f} ms; host twin end to end "
+            f"{host_twin_ms:.1f} ms; device twin end to end "
+            f"{dev_twin_ms:.1f} ms (host clock, synchronised; {card})")
+        res.update(label_block_ms=label_ms, label_device_events=n_dev,
+                   host_segments_voting_ms=seg_ms,
+                   host_twin_block_ms=host_twin_ms,
+                   device_twin_block_ms=dev_twin_ms)
+    res["phase_s"] = time.perf_counter() - t_phase
+    say(f"[vp] phase: {res['phase_s']:.1f} s")
     return res
 
 

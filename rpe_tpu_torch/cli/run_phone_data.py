@@ -1,0 +1,54 @@
+"""Phone-data pipeline runner (port of rpe_tpu/cli/run_phone_data.py).
+
+Runs on the CUDA card; `main(argv, device="cpu")` runs the plain PyTorch
+versions instead.
+
+Usage:
+    python -m rpe_tpu_torch.cli.run_phone_data [--step STEP] [--no-plot]
+        [--no-video] [--video-fps FPS]
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+from ._common import make_mesh, sequence_parser
+
+
+def main(argv=None, device=None):
+    args = sequence_parser("Phone Data Pose Estimation Pipeline",
+                           default_step=5, default_fps=5).parse_args(argv)
+
+    from ..pipeline.orchestrator import PoseEstimationPipeline
+
+    data_dir = Path(args.data_root) / "evaluation-runs/phone-data/data"
+    results_dir = args.results_dir or "evaluation-runs/phone-data/results"
+    pipeline = PoseEstimationPipeline(
+        data_dir=data_dir,
+        gt_filename="camera_poses_zyx.txt",
+        calibration_file=str(data_dir / "calibration_scaled.npz"),
+        results_dir=results_dir,
+        feature_method=args.feature,
+        norm_type="Hamming" if args.feature == "ORB" else "L2",
+        max_matches=500,
+        euler_convention="zyx",  # phone uses ZYX convention
+        mesh=make_mesh(args.devices),
+        chunk=args.chunk,
+        profile=args.profile,
+        seed=args.seed,
+        extract_cap=args.extract_cap,
+        device=device,
+    )
+    pipeline.setup()
+    results = pipeline.run(
+        step=args.step,
+        create_plot=not args.no_plot,
+        create_video=not args.no_video,
+        video_fps=args.video_fps,
+    )
+    print(f"\n[INFO] Pipeline completed. Results saved to {results_dir}/")
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -14,14 +14,16 @@ the configured convention, the same result dict; a degenerate pair gives
 valid=False and the identity instead of aborting the run (strict=True
 restores the abort). Checkpoints (jsonl, a config-hash header, `.stale` on
 a mismatch, per-record frame checks, a salt) and the inlier-collapse
-fallback are the reference's too. The device mesh and VP refinement are
-not ported yet and raise NotImplementedError.
+fallback are the reference's too, and so is the VP (Manhattan) refinement
+of `process_sequence`. The device mesh is not ported yet and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -75,7 +77,10 @@ class BatchProcessor:
     `meter` holds its ThroughputMeter and `timer` its stage times, printed
     with the throughput: decode (host image decode), stage (pinned
     host-to-device copies), dispatch (the estimator call) and flush
-    (waiting for a chunk's outputs and recording them).
+    (waiting for a chunk's outputs and recording them); `process_sequence`
+    with VP on adds "vp" (one block of frames). After such a run,
+    `vp_frames` holds each frame's (Delta | None, ok, dbg) and `vp_used`
+    which pairs took the refined rotation.
     """
 
     def __init__(self, images_dir, pose_estimator, ground_truth_loader,
@@ -101,6 +106,8 @@ class BatchProcessor:
         self.checkpoint_salt = checkpoint_salt
         self.timer = StageTimer()
         self.meter = None
+        self.vp_frames = None
+        self.vp_used = None
 
     def get_image_path(self, frame_idx):
         """{idx:06d}.png path in images_dir."""
@@ -338,10 +345,6 @@ class BatchProcessor:
         frames = list(frame_indices)
         if len(frames) < 2:
             raise ValueError("Need at least 2 frames to process")
-        if self.pose_estimator.config.vp.enabled:
-            raise NotImplementedError(
-                "VP refinement is not ported yet: ROADMAP.md Queue 1, "
-                '"VP refinement"')
 
         paths = [str(self.get_image_path(f)) for f in frames]
         imgs = LazyFrameSource(
@@ -361,6 +364,8 @@ class BatchProcessor:
         R_prev = euler_to_rotation(
             rpy1[:, 2], rpy1[:, 1], rpy1[:, 0],
             convention=self.euler_convention).numpy()    # (N, 3, 3) float32
+        if self.pose_estimator.config.vp.enabled:
+            self._refine_with_vps(frames, imgs, R_prev, R_rel, valid)
         R_world = R_prev @ R_rel                           # float64
         yaw, pitch, roll = (a.numpy() for a in rotation_to_euler(
             R_world, convention=self.euler_convention))
@@ -375,6 +380,69 @@ class BatchProcessor:
             "valid": valid,
             "num_matches": num_matches,
         }
+
+    def _refine_with_vps(self, frames, imgs, R_prev, R_rel, valid):
+        """VP (Manhattan) refinement of R_rel in place, GT-anchored like the
+        reference's batch loop (rpe_tpu/pipeline/batch.py:400-465).
+
+        Each frame's VP statistics are computed once, in blocks of 8 frames
+        per labeling call (the last block padded by repeating its last
+        frame); only the gated LM runs per pair. As in the reference, frame
+        f of a block is seeded with its position f in the block (0-7), not
+        its frame number, so the sampled voting draws the reference's
+        pairs. RPE_VP_DEVICE=1, read at call time, votes with the tensor
+        twin on the device as well (one copy back per block); the default is
+        the host twin, whose labels and magnitudes come back in one copy per
+        block.
+        """
+        from ..geometry.vp_refine import (
+            manhattan_dirs_for_frames,
+            manhattan_dirs_for_frames_device,
+            optimize_rotation_from_vps,
+            vp_cost,
+        )
+
+        cfg = self.pose_estimator.config
+        dirs_fn = (manhattan_dirs_for_frames_device
+                   if os.environ.get("RPE_VP_DEVICE") == "1"
+                   else manhattan_dirs_for_frames)
+        dev = self.pose_estimator.device
+        K = np.asarray(self.pose_estimator.K, dtype=np.float64)
+        stats = []
+        ch = 8  # frames per labeling call (bounds device memory)
+        for s in range(0, len(frames), ch):
+            with self.timer.stage("vp"):
+                blk = np.asarray(imgs[s:s + ch])
+                pad = ch - blk.shape[0]
+                if pad:
+                    blk = np.concatenate(
+                        [blk, np.repeat(blk[-1:], pad, axis=0)])
+                got = dirs_fn(blk, K, cfg.vp, device=dev)
+            stats.extend(got[:ch - pad] if pad else got)
+
+        def reliable(entry):
+            _, ok, dbg = entry
+            return (ok and dbg.get("acc_max", 0.0) >= cfg.vp.acc_min
+                    and dbg.get("vp2_score", 0.0) >= cfg.vp.vp2_min)
+
+        used = np.zeros(len(frames) - 1, dtype=bool)
+        for i in range(len(frames) - 1):
+            if not valid[i]:
+                continue
+            if not (reliable(stats[i]) and reliable(stats[i + 1])):
+                continue
+            Delta_prev = stats[i][0]
+            Delta_new = stats[i + 1][0]
+            R_new_init = R_prev[i] @ R_rel[i]
+            D_world = R_prev[i].T @ Delta_prev
+            cost_init = vp_cost(R_new_init, Delta_new, D_world)
+            R_opt = optimize_rotation_from_vps(
+                R_new_init, Delta_new, D_world, cfg.vp)
+            if (vp_cost(R_opt, Delta_new, D_world)
+                    < cost_init - cfg.vp.cost_improve_eps):
+                R_rel[i] = R_prev[i].T @ R_opt
+                used[i] = True
+        self.vp_frames, self.vp_used = stats, used
 
     def process_at_interval(self, step: int = 15):
         """Frames whose number is a multiple of `step`."""

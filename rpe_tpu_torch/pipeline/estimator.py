@@ -198,10 +198,10 @@ def estimate_pair(img1, img2, K, key, cfg: EstimatorConfig = EstimatorConfig(),
 class PoseEstimator:
     """Reference-compatible single-pair API (rpe_tpu/pipeline/estimator.py
     `PoseEstimator`): RuntimeError on < 5 matches or essential-matrix
-    failure. VP refinement is not ported yet (ROADMAP.md Queue 1, "VP
-    refinement"): as in the reference, it runs only when `R_prev` is given,
-    so without `R_prev` the VP-on estimator returns the plain pose, and with
-    it the call raises NotImplementedError."""
+    failure. VP refinement runs when `use_vp_refinement` and `R_prev` are
+    given (geometry/vp_refine.py, the host twin with per-role seeds 0 and 1,
+    its labeling on the estimator's device), with the gated accept of the
+    reference; without `R_prev` the plain pose comes back."""
 
     def __init__(
         self,
@@ -260,10 +260,6 @@ class PoseEstimator:
         return out["R"], out["t"]
 
     def estimate_with_debug(self, img1, img2, R_prev=None):
-        if self.config.vp.enabled and R_prev is not None:
-            raise NotImplementedError(
-                "VP refinement is not ported yet: ROADMAP.md Queue 1, "
-                '"VP refinement"')
         out = estimate_pair(img1, img2, self.K, self._next_key(),
                             cfg=self.config, device=self.device)
         num_matches = int(out["num_matches"])
@@ -273,8 +269,9 @@ class PoseEstimator:
         if not bool(out["valid"]):
             raise RuntimeError("Could not estimate Essential matrix.")
         mv = out["match_valid"].cpu().numpy()
-        return {
-            "R": out["R"].cpu().numpy().astype(np.float64),
+        R_rel = out["R"].cpu().numpy().astype(np.float64)
+        debug = {
+            "R": R_rel,
             "t": out["t"].cpu().numpy().astype(np.float64).reshape(3, 1),
             "num_matches": num_matches,
             "pts1": out["pts1"].cpu().numpy()[mv],
@@ -283,3 +280,15 @@ class PoseEstimator:
             "vp_used": False,
             "vp_debug": {},
         }
+        if self.config.vp.enabled and R_prev is not None:
+            from ..geometry.vp_refine import refine_rotation_with_vps
+
+            R_ref, vp_used, vp_dbg = refine_rotation_with_vps(
+                np.asarray(img1), np.asarray(img2),
+                np.asarray(R_prev, dtype=np.float64), R_rel,
+                self.K, self.config.vp, device=self.device)
+            debug["vp_debug"] = vp_dbg
+            if vp_used:
+                debug["R"] = R_ref
+                debug["vp_used"] = True
+        return debug

@@ -2,7 +2,9 @@
 
 RANSAC, the homography rescue and the plane-and-parallax sampler draw their
 minimal samples from JAX keys in the reference package
-(rpe_tpu/geometry/ransac.py:51, :188, :274; geometry/homography.py:211).
+(rpe_tpu/geometry/ransac.py:51, :188, :274; geometry/homography.py:211), and
+the VP device twin draws its voting pairs with `jax.random.randint`
+(geometry/vp_refine.py:404-408).
 Reproducing the generator bit for bit makes per-pair parity possible: one
 key gives the same samples in both packages.
 
@@ -44,11 +46,11 @@ def threefry2x32(k1, k2, x1, x2):
 
 
 def PRNGKey(seed: int, device=None):
-    """`jax.random.PRNGKey(seed)` for a 32-bit integer seed: (2,) int64."""
-    seed = int(seed)
-    if not -(2 ** 31) <= seed < 2 ** 31:
-        raise ValueError(f"seed must fit in int32, got {seed}")
-    return torch.tensor([0, seed & _MASK], dtype=torch.int64, device=device)
+    """`jax.random.PRNGKey(seed)`: (2,) int64. Without 64-bit mode JAX takes
+    any integer seed modulo 2^32 (2^31 -> [0, 2^31], -1 -> [0, 2^32 - 1],
+    2^32 + 3 -> [0, 3]), and so does the port."""
+    return torch.tensor([0, int(seed) % 2 ** 32], dtype=torch.int64,
+                        device=device)
 
 
 def _hash_counts(key, shape):
@@ -86,3 +88,34 @@ def uniform(key, shape):
     bits = random_bits(key, shape)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return torch.clamp_min(f - 1.0, 0.0)
+
+
+def randint(key, shape, minval, maxval):
+    """`jax.random.randint(key, shape, minval, maxval)` for int32 output:
+    (..., *shape) int64 holding int32 values. `minval` and `maxval` are
+    ints or tensors of the key's leading shape (one bound per key).
+
+    JAX's algorithm (jax/_src/random.py `_randint`): two sets of 32-bit
+    draws from the halves of split(key), combined modulo the span with the
+    multiplier 2^32 mod span, in uint32 arithmetic; a span <= 0 gives
+    minval."""
+    shape = tuple(shape)
+    lead = key.shape[:-1]
+
+    def bound(v):
+        v = torch.as_tensor(v, dtype=torch.int64, device=key.device)
+        v = v.clamp(-(2 ** 31), 2 ** 31 - 1)
+        return v.reshape(*v.shape, *([1] * len(shape))) if v.dim() else v
+
+    lo, hi = bound(minval), bound(maxval)
+    k = split(key)
+    higher = random_bits(k[..., 0, :], shape)
+    lower = random_bits(k[..., 1, :], shape)
+    span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & _MASK)
+    span = span.expand(*lead, *shape) if span.dim() else span
+    # products and sums wrap modulo 2^32 as uint32 does (int64 products
+    # wrap modulo 2^64, which keeps the low 32 bits)
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _MASK) % span
+    off = ((((higher % span) * mult) & _MASK) + (lower % span)) & _MASK
+    return lo + off % span

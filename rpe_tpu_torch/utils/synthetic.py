@@ -8,6 +8,12 @@ the estimator's convention (x2 ~ R x1 + t). numpy only; made from a seed.
 `write_kitti_sequence` writes such a sequence to disk in the KITTI layout,
 its PNGs by a stdlib zlib writer (`write_png`), so no imaging library is
 needed.
+
+`manhattan_sequence` renders a camera turning inside a tiled box whose walls
+are aligned with the world axes: the grout lines run along the three axes,
+so they converge on the three vanishing points of the camera's rotation,
+and the tiles' random shades give ORB its corners. `write_dataset` writes
+such a sequence in the layout of the simulator, phone and Salah runners.
 """
 
 from __future__ import annotations
@@ -213,3 +219,137 @@ def write_kitti_sequence(root, frames, K, R, t):
     (root / "calib.txt").write_text(
         "P0: " + " ".join(f"{v:.12e}" for v in P0.reshape(-1)) + "\n")
     return images, root / "poses.txt", root / "calib.txt"
+
+
+# ---------------------------------------------------------------------------
+# A Manhattan scene: a tiled box, the camera inside it
+# ---------------------------------------------------------------------------
+
+MANHATTAN_R0 = (0.45, -0.55, 0.35)   # axis-angle: all three VPs finite
+MANHATTAN_STEP = (0.02, 0.0, 0.06)   # camera centre's motion a frame
+GROUT = 0.1                          # grout line width (world units)
+SPECK = 4                            # speck cells per tile side
+SAMPLES = 2                          # supersampling per pixel side
+# A room whose 1241x376 frames, drawn through the dataset runners' default
+# intrinsics (pipeline/calibration.py scaled to that size), pass the default
+# VP gates (acc_max >= 8e5, vp2_score >= 8000) on every one of 17 frames in
+# both twins: the z-lines dominate (VP1), the x-lines outnumber the y-lines
+# (so VP2 is the x one in every frame, and consecutive frames' directions do
+# not swap columns), and no specks, whose short edges would crowd out the
+# long lines.
+GATED_ROOM = dict(spacing=(1.2, 6.0, 1.0), room=(5.0, 2.5, 8.0),
+                  dot_half=0.0)
+
+
+def rot_y(deg: float):
+    """Ry(deg): the yaw rotation of the yup convention (float64)."""
+    a = np.deg2rad(deg)
+    return np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0],
+                     [-np.sin(a), 0.0, np.cos(a)]])
+
+
+def manhattan_sequence(n_frames: int, h: int = 376, w: int = 1241,
+                       seed: int = 0, rot_deg: float = 0.25,
+                       room=(6.0, 3.0, 8.0), spacing=(1.7, 1.7, 1.7),
+                       dot_half: float = 0.1, K=None):
+    """Frames of a camera turning inside a tiled box.
+
+    The camera-from-world rotation of frame f is Ry(rot_deg)^f R0 (R0 from
+    MANHATTAN_R0) and its centre moves by MANHATTAN_STEP (world units) a
+    frame, so every consecutive pair has the relative rotation Ry(rot_deg)
+    (x2 = R x1 + t), and the yup ground truth of frame f is yaw f * rot_deg
+    with zero pitch and roll. The box spans +-room along the world axes;
+    each wall is tiled in random shades, split by dark grout lines of width
+    GROUT along the world axes, the lines along axis a `spacing[a]` apart
+    (so one family of lines can outnumber another); about half of the
+    SPECK x SPECK cells of a tile hold a square of another random shade,
+    2 * `dot_half` of a cell wide (corners for ORB; their short edges run
+    along the axes too). The frames are drawn anti-aliased by SAMPLES x
+    SAMPLES supersampling, through `K` (default `camera_matrix(h, w)`; the
+    dataset runners' scaled default intrinsics for a scene that they read
+    without a calibration file).
+
+    Returns (frames (n_frames, h, w) float32 in [0, 255], K (3, 3) float32,
+    R_rel (3, 3) float64, yaw_deg (n_frames,), centres (n_frames, 3)).
+    """
+    rng = np.random.default_rng(seed)
+    K = np.asarray(camera_matrix(h, w) if K is None else K, np.float64)
+    Kinv = np.linalg.inv(K)
+    shades = rng.uniform(70.0, 250.0, (3, 97, 89))
+    specks = np.where(rng.uniform(size=(3, 113, 109)) < 0.5,
+                      rng.uniform(0.0, 255.0, (3, 113, 109)), -1.0)
+    S = rot_y(rot_deg)
+    R0 = rotation_from_axis_angle(MANHATTAN_R0)
+    half = np.asarray(room, np.float64)
+    sx, sy, sz = spacing
+    step = np.asarray(MANHATTAN_STEP, np.float64)
+    centre0 = -0.3 * step * n_frames
+
+    offs = (np.arange(SAMPLES) + 0.5) / SAMPLES - 0.5
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    frames, yaws, centres = [], [], []
+    R = R0
+    for f in range(n_frames):
+        C = centre0 + f * step
+        acc = np.zeros((h, w))
+        for oy in offs:
+            for ox in offs:
+                pix = np.stack([xs + ox, ys + oy, np.ones_like(xs)], -1)
+                d = pix @ (R.T @ Kinv).T                # world ray directions
+                with np.errstate(divide="ignore"):
+                    t = (np.where(d > 0, half, -half) - C) / d
+                t = np.where(np.isfinite(t) & (t > 0), t, np.inf)
+                axis = np.argmin(t, axis=-1)            # the wall hit first
+                hit = C + np.take_along_axis(t, axis[..., None], -1) * d
+                # the wall's two in-plane world coordinates
+                u = np.where(axis == 0, hit[..., 1], hit[..., 0])
+                v = np.where(axis == 2, hit[..., 1], hit[..., 2])
+                # lines at u = const run along v's axis, and vice versa
+                tu = np.where(axis == 2, sy, sz)
+                tv = np.where(axis == 0, sy, sx)
+                iu = np.floor(u / tu).astype(np.int64)
+                iv = np.floor(v / tv).astype(np.int64)
+                shade = shades[axis, iu % 97, iv % 89]
+                cu, cv = u * SPECK / tu, v * SPECK / tv
+                ju, jv = np.floor(cu).astype(np.int64), \
+                    np.floor(cv).astype(np.int64)
+                dot = specks[axis, ju % 113, jv % 109]
+                inner = ((np.abs(cu - ju - 0.5) < dot_half)
+                         & (np.abs(cv - jv - 0.5) < dot_half) & (dot >= 0))
+                shade = np.where(inner, dot, shade)
+                fu, fv = u / tu - iu, v / tv - iv
+                line = (fu < GROUT / tu) | (fv < GROUT / tv)
+                acc += np.where(line, 25.0, shade)
+        frames.append((acc / len(offs) ** 2).astype(np.float32))
+        yaws.append(f * rot_deg)
+        centres.append(C)
+        R = S @ R
+    return (np.stack(frames), K.astype(np.float32), S, np.asarray(yaws),
+            np.stack(centres))
+
+
+def write_dataset(root, frames, yaw_deg, centres, calib_name=None, K=None):
+    """Write a sequence in the dataset runners' layout under `root` (their
+    `data` directory): images/000000.png ... (8-bit grayscale, rounded and
+    clipped) and a ground-truth table `frame x y z roll pitch yaw` with the
+    given yaw (degrees), zero pitch and roll and the centres as positions.
+    Its name is camera_poses.txt (simulator) or, with `calib_name`,
+    camera_poses_zyx.txt beside an .npz holding K under that name (phone:
+    calibration_scaled.npz, Salah: calibration.npz). Returns root."""
+    from pathlib import Path
+
+    root = Path(root)
+    images = root / "images"
+    images.mkdir(parents=True, exist_ok=True)
+    for i, f in enumerate(np.asarray(frames)):
+        write_png(images / f"{i:06d}.png",
+                  np.clip(np.rint(f), 0, 255).astype(np.uint8))
+    rows = ["frame x y z roll pitch yaw"]
+    for i, (c, yaw) in enumerate(zip(centres, yaw_deg)):
+        rows.append(f"{i} {c[0]:.9f} {c[1]:.9f} {c[2]:.9f} 0.0 0.0 "
+                    f"{float(yaw):.9f}")
+    gt = "camera_poses.txt" if calib_name is None else "camera_poses_zyx.txt"
+    (root / gt).write_text("\n".join(rows) + "\n")
+    if calib_name is not None:
+        np.savez(root / calib_name, K=np.asarray(K, np.float64))
+    return root

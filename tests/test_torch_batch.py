@@ -305,11 +305,18 @@ def test_unported_options_raise(seq):
     d, K, _ = seq
     gt = TGT(d / "camera_poses.txt")
     gt.load()
+    # VP refinement is ported (tests/test_torch_vp.py holds it to the
+    # reference): process_sequence runs it, one statistics entry a frame
     vp = tbatch.BatchProcessor(
-        d, TEstimator(K, use_vp_refinement=True, device="cpu"), gt)
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP.md Queue 1, "VP refinement"'):
-        vp.process_sequence(FRAMES)
+        d, TEstimator(K, use_vp_refinement=True, config=_port_cfg(TINY),
+                      nfeatures=TINY.orb.nfeatures,
+                      max_matches=TINY.matcher.max_matches, device="cpu"),
+        gt, chunk=CHUNK)
+    out = vp.process_sequence(FRAMES)
+    assert out["frames"] == FRAMES[1:]
+    assert len(vp.vp_frames) == len(FRAMES)
+    assert vp.vp_used.shape == (len(FRAMES) - 1,)
+    assert vp.timer.counts["vp"] == 1
     with pytest.raises(ValueError, match="at least 2 frames"):
         vp.process_sequence([0])
 

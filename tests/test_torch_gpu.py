@@ -655,3 +655,78 @@ def test_kitti_runner_decodes_and_estimates_on_the_card(cuda, tmp_path):
 
     assert rotation_error_deg(rotations(tmp_path / "card.jsonl"),
                               rotations(tmp_path / "cpu.jsonl")).max() <= 0.5
+
+
+@pytest.fixture(scope="module")
+def room():
+    """A Manhattan room (utils/synthetic.py `GATED_ROOM`), 8 frames of
+    376x1241: the default VP gates pass on every frame of it."""
+    from rpe_tpu_torch.pipeline.calibration import CameraCalibration
+    from rpe_tpu_torch.utils.synthetic import GATED_ROOM, manhattan_sequence
+
+    frames, K, S, yaw, centres = manhattan_sequence(
+        8, 376, 1241, seed=0, K=CameraCalibration().get_matrix(1241, 376),
+        **GATED_ROOM)
+    return np.clip(np.rint(frames), 0, 255).astype(np.float32), K
+
+
+def test_vp_labels_card_against_cpu(cuda, room):
+    """The 96-round labeling on the card against the CPU: CUDA's atanf can
+    round a level-line angle the other way, so a pixel at the 22.5 deg gate
+    may join another region; on this room no more than 1 in 10^4 labels
+    differ, and the host twin's gate decisions are equal."""
+    from rpe_tpu_torch.config import VpConfig
+    from rpe_tpu_torch.geometry import vp_refine
+    from rpe_tpu_torch.ops import lsd
+
+    frames, K = room
+    lab_card, _, mag_card = lsd._label_regions(
+        torch.from_numpy(frames).to(cuda))
+    lab_cpu, _, mag_cpu = lsd._label_regions(torch.from_numpy(frames))
+    share = float((lab_card.cpu() != lab_cpu).float().mean())
+    assert share <= 1e-4, share
+    torch.testing.assert_close(mag_card.cpu(), mag_cpu, rtol=1e-6, atol=0)
+    cfg = VpConfig(enabled=True)
+    card = vp_refine.manhattan_dirs_for_frames(frames, K.astype(np.float64),
+                                               cfg, device="cuda")
+    cpu = vp_refine.manhattan_dirs_for_frames(frames, K.astype(np.float64),
+                                              cfg, device="cpu")
+
+    def gate(e):
+        return bool(e[1] and e[2]["acc_max"] >= cfg.acc_min
+                    and e[2]["vp2_score"] >= cfg.vp2_min)
+
+    assert [gate(e) for e in card] == [gate(e) for e in cpu]
+    assert all(gate(e) for e in card)
+
+
+def test_vp_device_twin_card_against_cpu(cuda, room):
+    """The tensor twin on the card against the CPU: the same gate decisions
+    at the default gates, and acc_max within 5%. The card's scatter sums
+    run in another order, so two lines of nearly equal length can swap
+    places in the length order, and the sampled vote, which draws line
+    indices, draws other pairs: the extreme-value statistics move by a few
+    per cent (vp2_score 3.4% on this room). The refinement returns tensors
+    on the card."""
+    from rpe_tpu_torch.config import VpConfig
+    from rpe_tpu_torch.geometry import vp_refine
+
+    frames, K = room
+    cfg = VpConfig(enabled=True)
+    card = vp_refine.manhattan_dirs_for_frames_device(
+        frames, K.astype(np.float64), cfg, device="cuda")
+    cpu = vp_refine.manhattan_dirs_for_frames_device(
+        frames, K.astype(np.float64), cfg, device="cpu")
+    for a, b in zip(card, cpu):
+        assert a[1] == b[1]
+        np.testing.assert_allclose(a[2]["acc_max"], b[2]["acc_max"],
+                                   rtol=5e-2)
+        assert (a[2]["acc_max"] >= cfg.acc_min) == \
+            (b[2]["acc_max"] >= cfg.acc_min)
+        assert (a[2]["vp2_score"] >= cfg.vp2_min) == \
+            (b[2]["vp2_score"] >= cfg.vp2_min)
+    R_prev = np.eye(3, dtype=np.float32)
+    R_rel = np.eye(3, dtype=np.float32)
+    R, used, stats = vp_refine.refine_rotation_with_vps_device(
+        frames[0], frames[1], R_prev, R_rel, K, cfg, device="cuda")
+    assert R.is_cuda and used.is_cuda and stats["cost_opt"].is_cuda

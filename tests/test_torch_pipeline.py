@@ -185,12 +185,17 @@ def test_unported_options_raise(monkeypatch, scene, change):
     frames, K, _, keys = scene
     _, tc = _cfgs()
     if change == "vp":
-        # VP refinement runs only with R_prev, as in the reference: the
-        # estimator constructs, and refuses the call that would run VP
+        # VP refinement is ported (tests/test_torch_vp.py holds it to the
+        # reference): with R_prev the call runs the gated refinement, and
+        # where the gates hold it back the plain pose comes back
         est = test_.PoseEstimator(K, use_vp_refinement=True, device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match='ROADMAP.md Queue 1, "VP refinement"'):
-            est.estimate_with_debug(frames[0], frames[1], R_prev=np.eye(3))
+        got = est.estimate_with_debug(frames[0], frames[1], R_prev=np.eye(3))
+        assert {"prev_frame", "new_frame", "reliability"} <= \
+            set(got["vp_debug"])
+        plain = test_.PoseEstimator(K, device="cpu").estimate_with_debug(
+            frames[0], frames[1])
+        if not got["vp_used"]:
+            np.testing.assert_array_equal(got["R"], plain["R"])
         return
     if change == "orb_l2":
         # ORB has no float descriptors: a clear ValueError, not a KeyError

@@ -176,8 +176,13 @@ def test_port_imports_neither_jax_nor_reference():
     assert len(files) > 15
     subpackages = {f.relative_to(ROOT / "rpe_tpu_torch").parts[0]
                    for f in files[:-1]}
-    assert {"io", "cli", "pipeline", "geometry", "ops",
-            "utils"} <= subpackages
+    assert {"io", "cli", "pipeline", "geometry", "ops", "utils",
+            "viz"} <= subpackages
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {f"rpe_tpu_torch/{m}.py" for m in (
+        "ops/lsd", "geometry/vp_refine", "pipeline/orchestrator",
+        "viz/visualizer", "cli/run_simulator_data", "cli/run_phone_data",
+        "cli/run_vo_database_salah", "cli/run_single_pair")} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
