@@ -23,25 +23,39 @@ Phases (any failure exits non-zero before the final line):
      descriptors, K4 on 8 x 256 hypotheses' coefficients and 2048 exact
      minimal problems, K5 (K4's brackets alone) on the latter -- with its
      contract, its time (CUDA events, L2 flushed before each launch; for
-     K1, K4, K5 and K8-K10 also the queued time per call of 20 calls back
-     to back), the plain version's time, a library call's time where one
+     K1, K2, K4, K5, K8-K10 and K12 also the queued time per call of 20
+     calls back to back), the plain version's time, a library call's time where one
      computes the same function, and its bound on the H100; then K8, K9
      and K10 on edge-slot tables (live, parked, constant-raw and past-edge
      slots, one layout with F * NB * CAP not a multiple of 4) against their
-     plain versions, K9's and K10's moments equal to K2's;
+     plain versions, K9's and K10's moments equal to K2's; K1 on the
+     per-level path's inputs, levels 0 (376x1241) and 11 (132x435) of the
+     9 frames' pyramids, held as on the atlas; K2 and K12 in the modes of
+     RPE_BRIEF=cv2 with rounded samples, and K2 with rounded samples
+     alone, against their plain versions in the same mode on the real
+     tables (bits >= 0.999, moments as K2's), each with its time and
+     bound (chip_smoke.json "modes");
   4. paths: `estimate_sequence_batched` on the 9 frames (8 pairs) at
      EstimatorConfig() (ORB, Hamming cross-check: K1-K4), SIFT with L2
      cross-check (config A: K7, K4), SIFT with the L2 Lowe ratio test
      (config B: K6-L2, K4), and ORB with the Hamming ratio test (K1, K2,
      K6-Hamming, K4), then the ORB path under four of the reference's
      extraction gate settings, each taking K12, K10, K9 or K8 in K2's place
-     (set in the process for that path, restored after it). Every launch
-     counter is reset just before each path and read just after; each path
-     must launch exactly its kernels. Each path runs its first 3 frames
+     (set in the process for that path, restored after it), then the ORB
+     path under the reference's other switches: RPE_NO_ATLAS=1 (K1 once
+     per level, 12 launches, K3, K4, no extraction kernel),
+     RPE_NO_FUSED_ATLAS=1, RPE_BRIEF=cv2 (K2 in its wide, rounded mode),
+     RPE_BRIEF=cv2 with RPE_EXTRACT_T_V7=1 (K12), RPE_BRIEF_QUANT=1 and
+     RansacConfig(lo=True). Every launch counter is reset just before
+     each path and read just after; each path must launch exactly its
+     kernels, each as often as stated (once unless counted). Each path runs its first 3 frames
      again with device="cpu" (plain versions), which must agree (equal
      `valid`, <= 0.5 deg rotation); the K8-K10 routes' ORB bits must agree
      with the default route's on the same keypoints (>= 0.999); rotation
-     error against the scene's ground truth; pairs/s;
+     error against the scene's ground truth; pairs/s; then one host line:
+     the calibration tool (`tools.calibrate.calibrate_with_filtering`,
+     numpy) on 12 seeded synthetic chessboard views, two corrupted, with
+     its RMS;
   5. sequence runner: a synthetic 1241x376 sequence of 33 frames written as
      8-bit PNGs with a KITTI poses.txt and calib.txt (utils/synthetic.py
      `write_kitti_sequence`), run through `rpe_tpu_torch.cli.
@@ -146,7 +160,8 @@ def main() -> None:
 
     import numpy as np
 
-    from rpe_tpu_torch.config import EstimatorConfig, MatcherConfig
+    from rpe_tpu_torch.config import EstimatorConfig, MatcherConfig, \
+        RansacConfig
     from rpe_tpu_torch.geometry import five_point as fp
     from rpe_tpu_torch.ops import extract as textract
     from rpe_tpu_torch.ops import kernels
@@ -159,6 +174,7 @@ def main() -> None:
         mutual_nn_l2, mutual_nn_l2_plain, near_tie_ok, row_top2, \
         row_top2_plain
     from rpe_tpu_torch.ops.orb import PATCH, atlas_keypoints
+    from rpe_tpu_torch.ops.pyramid import build_pyramid
     from rpe_tpu_torch.pipeline.estimator import estimate_sequence_batched
     from rpe_tpu_torch.utils.device import full_precision
     from rpe_tpu_torch.utils.synthetic import make_sequence, \
@@ -254,35 +270,49 @@ def main() -> None:
                          o.fast_threshold, o.max_kpts)
     atlas = kp["atlas"].contiguous()
     nf, ha, wp = atlas.shape
-    rk, bk = fast_harris_rank_map(atlas, o.fast_threshold)
-    rp, bp = fast_harris_rank_map_plain(atlas, o.fast_threshold)
-    m = 8
-    a, b = rk[:, m:-m, m:-m], rp[:, m:-m, m:-m]
-    same_set = bool(torch.equal(torch.isfinite(a), torch.isfinite(b)))
-    fin = torch.isfinite(b)
-    rel = float(((a[fin] - b[fin]).abs() / (b[fin].abs() + 1e-3)).max()) \
-        if bool(fin.any()) else 0.0
-    blur_err = float((bk[:, m:-m, m:-m] - bp[:, m:-m, m:-m]).abs().max())
-    # bit equality: the interior against the plain version, the whole image
-    # against the plain version run on the wrap-padded atlas (every stage
-    # wrapping at the edges, as the kernel's edge tiles do)
-    interior_eq = bool(torch.equal(a, b)
-                       and torch.equal(bk[:, m:-m, m:-m], bp[:, m:-m, m:-m]))
-    pad = torch.nn.functional.pad(atlas[:, None], (m,) * 4, mode="circular")
-    rw, bw = (x[:, m:-m, m:-m] for x in fast_harris_rank_map_plain(
-        pad[:, 0], o.fast_threshold))
-    whole_eq = bool(torch.equal(rk, rw) and torch.equal(bk, bw))
-    edge = int((rk != rp).sum() + (bk != bp).sum())
-    del pad, rw, bw
-    check("K1 fast_harris", interior_eq and whole_eq and same_set
-          and rel < 1e-3 and blur_err < 1e-3,
-          f"{nf} atlases, rank and blur bit-equal over the interior "
-          f"({m} px from the edges)={interior_eq} and over the whole image "
-          f"to the plain version on the wrap-padded atlas={whole_eq}; corner "
-          f"set equal={same_set} ({int(fin.sum())} corners), harris max rel "
-          f"err {rel:.3e} (< 1e-3), blur max abs err {blur_err:.3e} (< "
-          f"1e-3); {edge} edge-band values differ from the unpadded plain "
-          f"version (its zero and -inf padding)")
+    def k1_contract(img):
+        """K1 against its plain version on `img` (F, H, W): bit equality
+        over the interior and, over the whole image, against the plain
+        version run on the wrap-padded image (every stage wrapping at the
+        edges, as the kernel's edge tiles do)."""
+        m = 8
+        rk, bk = fast_harris_rank_map(img, o.fast_threshold)
+        rp, bp = fast_harris_rank_map_plain(img, o.fast_threshold)
+        a, b = rk[:, m:-m, m:-m], rp[:, m:-m, m:-m]
+        fin = torch.isfinite(b)
+        res = dict(
+            same_set=bool(torch.equal(torch.isfinite(a), fin)),
+            rel=float(((a[fin] - b[fin]).abs() / (b[fin].abs() + 1e-3)).max())
+            if bool(fin.any()) else 0.0,
+            blur_err=float((bk[:, m:-m, m:-m] - bp[:, m:-m, m:-m]).abs()
+                           .max()),
+            interior_eq=bool(torch.equal(a, b) and torch.equal(
+                bk[:, m:-m, m:-m], bp[:, m:-m, m:-m])),
+            corners=int(fin.sum()),
+            edge=int((rk != rp).sum() + (bk != bp).sum()))
+        pad = torch.nn.functional.pad(img[:, None], (m,) * 4, mode="circular")
+        rw, bw = (x[:, m:-m, m:-m] for x in fast_harris_rank_map_plain(
+            pad[:, 0], o.fast_threshold))
+        res["whole_eq"] = bool(torch.equal(rk, rw) and torch.equal(bk, bw))
+        res["ok"] = (res["interior_eq"] and res["whole_eq"]
+                     and res["same_set"] and res["rel"] < 1e-3
+                     and res["blur_err"] < 1e-3)
+        return res
+
+    def k1_msg(r, what):
+        return (f"{what}, rank and blur bit-equal over the interior (8 px "
+                f"from the edges)={r['interior_eq']} and over the whole image "
+                f"to the plain version on the wrap-padded image="
+                f"{r['whole_eq']}; corner set equal={r['same_set']} "
+                f"({r['corners']} corners), harris max rel err "
+                f"{r['rel']:.3e} (< 1e-3), blur max abs err "
+                f"{r['blur_err']:.3e} (< 1e-3); {r['edge']} edge-band values "
+                f"differ from the unpadded plain version (its zero and -inf "
+                f"padding)")
+
+    k1 = k1_contract(atlas)
+    blur_err = k1["blur_err"]
+    check("K1 fast_harris", k1["ok"], k1_msg(k1, f"{nf} atlases"))
     px = nf * ha * wp
     b_ms, b_by = bound(3 * 4 * px, 180 * px, FP32_OPS_PER_S)
     rows["fast_harris"] = dict(
@@ -348,6 +378,7 @@ def main() -> None:
         max_abs_err=mom_err, ms=cuda_ms(lambda: extract_brief(*args)),
         plain_ms=cuda_ms(lambda: extract_brief_plain(*args), iters=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    queued["extract_brief"] = queued_ms(lambda: extract_brief(*args))
 
     # K8, K9, K10 (patch kernels) and K12 (binned BRIEF) on the same tables:
     # K8 reads both atlases' whole patches, K9 and K10 the raw pixels under
@@ -456,6 +487,79 @@ def main() -> None:
         plain_ms=cuda_ms(lambda: extract_brief_plain(*args, binned=True),
                          iters=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    queued["extract_brief_binned"] = queued_ms(
+        lambda: extract_brief(*args, binned=True))
+
+    # K1 on the per-level path's inputs (RPE_NO_ATLAS): levels 0 and 11 of
+    # the 9 frames' pyramids, held as on the atlas; time and bound as K1's
+    modes = {}
+    levels = build_pyramid(imgs, o.nlevels, o.scale_factor)
+    for lv in (0, o.nlevels - 1):
+        img_l = levels[lv].contiguous()
+        r = k1_contract(img_l)
+        check(f"K1 fast_harris (level {lv}, {tuple(img_l.shape)})", r["ok"],
+              k1_msg(r, f"{nf} level-{lv} images"))
+        px_l = img_l.numel()
+        b_ms, b_by = bound(3 * 4 * px_l, 180 * px_l, FP32_OPS_PER_S)
+        modes[f"fast_harris level {lv}"] = dict(
+            shape=list(img_l.shape), max_abs_err=r["blur_err"],
+            ms=cuda_ms(lambda x=img_l: fast_harris_rank_map(
+                x, o.fast_threshold)),
+            plain_ms=cuda_ms(lambda x=img_l: fast_harris_rank_map_plain(
+                x, o.fast_threshold), iters=3),
+            queued_ms=queued_ms(lambda x=img_l: fast_harris_rank_map(
+                x, o.fast_threshold)),
+            bound_ms=b_ms, bound_by=b_by)
+    del levels, img_l
+
+    # K2 and K12 in the modes RPE_BRIEF and RPE_BRIEF_QUANT ask for, on the
+    # same tables: OpenCV's pattern with rounded samples (the wide sample
+    # radius: the whole blurred patch copied) and, for K2, the default
+    # pattern with rounded samples; the default mode's contracts. Bytes as
+    # the default mode's, with the blurred pixels this mode's samples
+    # reach; operations one more per sample where they are rounded.
+    for kn, binned, kind in ((2, False, "cv2"), (12, True, "cv2"),
+                             (2, False, "gauss")):
+        name = "extract_brief_binned" if binned else "extract_brief"
+        kw = dict(binned=binned, quant=True, kind=kind)
+        bits_k, m10_k2, m01_k2 = extract_brief(*args, **kw)
+        bits_p, m10_p2, m01_p2 = extract_brief_plain(*args, **kw)
+        agree = float((bits_k == bits_p)[live].float().mean())
+        mom_ok = bool(torch.allclose(m10_k2, m10_p2, rtol=1e-4, atol=2.0)
+                      and torch.allclose(m01_k2, m01_p2, rtol=1e-4, atol=2.0))
+        mom_err = float(torch.maximum((m10_k2 - m10_p2).abs().max(),
+                                      (m01_k2 - m01_p2).abs().max()))
+        parked_zero = bool((bits_k[~live] == 0).all()
+                           and (m10_k2[~live] == 0).all())
+        default = extract_brief(*args, binned=binned, quant=False,
+                                kind="gauss")[0]
+        moved = float((bits_k != default)[live].float().mean())
+        check(f"K{kn} {name} ({kind} pattern, quant)",
+              agree >= 0.999 and mom_ok and parked_zero,
+              f"bit agreement with the plain version {agree:.6f} (>= "
+              f"0.999), moments allclose(rtol 1e-4, atol 2)={mom_ok} (max "
+              f"abs err {mom_err:.3e}), parked slots zero={parked_zero}; "
+              f"{moved:.4f} of live bits differ from the default mode's")
+        feet_m = brief_footprints(torch, m10_p2, m01_p2, live, kind)
+        samp_px = union_px(torch, tb["tbl_x0"], tb["rel_y"], tb["band"], ha,
+                           wp, feet_m["k12" if binned else "k2"])
+        tables = (30 * 256 * 4 + 60 * 4) if binned else 256 * 16
+        ops = n_live * (4 * n_ic + (30 * 3 + 256 if binned else 256 * 12)
+                        + 512)
+        b_ms, b_by = bound(4 * (raw_px + samp_px) + slot_bytes + tables
+                           + brief_out, ops, FP32_OPS_PER_S)
+        modes[f"{name} {kind} quant"] = dict(
+            agree=agree, max_abs_err=mom_err, sampled_px=samp_px,
+            ms=cuda_ms(lambda kw=kw: extract_brief(*args, **kw)),
+            plain_ms=cuda_ms(lambda kw=kw: extract_brief_plain(*args, **kw),
+                             iters=3),
+            queued_ms=queued_ms(lambda kw=kw: extract_brief(*args, **kw)),
+            bound_ms=b_ms, bound_by=b_by)
+        del bits_k, bits_p, default
+    for k, v in modes.items():
+        say(f"mode {k}: {v['ms']:.4f} ms flushed, {v['queued_ms']:.4f} ms "
+            f"queued, plain {v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f}"
+            f" ms ({v['bound_by']}; {card})")
 
     # detections of all 9 frames feed K3, K6-Hamming and K4 at main-path
     # shapes
@@ -700,17 +804,21 @@ def main() -> None:
     # ---- 4. paths ---------------------------------------------------------------
     keys_np = np.stack([np.array([0, i], np.uint32) for i in range(8)])
     orb = ("fast_harris", "extract_brief")
+    orb_k = orb + ("match_hamming", "five_point_roots")
+    # (label, config, kernels launched -- each once unless counted --,
+    # environment, whether the bits must equal the default route's)
     paths = [
-        ("ORB cross-check", cfg, orb + ("match_hamming", "five_point_roots"),
-         {}),
+        ("ORB cross-check", cfg, orb_k, {}, False),
         ("SIFT A (L2 cross-check)", cfg_a, ("match_l2", "five_point_roots"),
-         {}),
-        ("SIFT B (L2 ratio)", cfg_b, ("row_top2_l2", "five_point_roots"), {}),
+         {}, False),
+        ("SIFT B (L2 ratio)", cfg_b, ("row_top2_l2", "five_point_roots"), {},
+         False),
         ("ORB ratio", cfg_orb_ratio,
-         orb + ("row_top2_hamming", "five_point_roots"), {}),
+         orb + ("row_top2_hamming", "five_point_roots"), {}, False),
     ]
     # the ORB path under the reference's other extraction gates: each
-    # setting's kernel takes K2's place (ops/extract.py `extract_route`)
+    # setting's kernel takes K2's place (ops/extract.py `extract_route`);
+    # K8-K10's routes describe with K2's function
     for route, gates in (
             ("extract_brief_binned", {"RPE_EXTRACT_T_V7": "1"}),
             ("extract_patches_t", {"RPE_EXTRACT_T_BRIEF": "0"}),
@@ -719,9 +827,33 @@ def main() -> None:
                                  "RPE_EXTRACT_MOMENTS": "0"})):
         paths.append((f"ORB {' '.join(f'{k}={v}' for k, v in gates.items())}",
                       cfg, ("fast_harris", route, "match_hamming",
-                            "five_point_roots"), gates))
+                            "five_point_roots"), gates,
+                      route != "extract_brief_binned"))
+    # the ORB path under the reference's other switches: the per-level path
+    # (K1 once per level, no extraction kernel), the unfused atlas, OpenCV's
+    # BRIEF pattern (K2 or K12 in its wide, rounded mode), rounded samples
+    # alone, and LO-RANSAC
+    cfg_lo = EstimatorConfig(ransac=RansacConfig(lo=True))
+    paths += [
+        ("ORB RPE_NO_ATLAS=1", cfg, {"fast_harris": o.nlevels,
+                                     "match_hamming": 1,
+                                     "five_point_roots": 1},
+         {"RPE_NO_ATLAS": "1"}, False),
+        ("ORB RPE_NO_FUSED_ATLAS=1", cfg, orb_k,
+         {"RPE_NO_FUSED_ATLAS": "1"}, False),
+        ("ORB RPE_BRIEF=cv2", cfg, orb_k, {"RPE_BRIEF": "cv2"}, False),
+        ("ORB RPE_BRIEF=cv2 RPE_EXTRACT_T_V7=1", cfg,
+         ("fast_harris", "extract_brief_binned", "match_hamming",
+          "five_point_roots"), {"RPE_BRIEF": "cv2", "RPE_EXTRACT_T_V7": "1"},
+         False),
+        ("ORB RPE_BRIEF_QUANT=1", cfg, orb_k, {"RPE_BRIEF_QUANT": "1"},
+         False),
+        ("ORB RansacConfig(lo=True)", cfg_lo, orb_k, {}, False),
+    ]
     summary = {}
-    for label, pcfg, expect, gates in paths:
+    for label, pcfg, expect, gates, same_bits in paths:
+        if not isinstance(expect, dict):
+            expect = {k: 1 for k in expect}
         with _gates(gates):
             estimate_sequence_batched(frames, K, keys_np, pcfg, device=dev)
             torch.cuda.synchronize()
@@ -735,10 +867,9 @@ def main() -> None:
             say(f"[{label}] launches: {launches}")
             for k in expect:
                 rows[k].setdefault("launches", launches[k])
-            ran = {k for k, n in launches.items() if n > 0}
-            if ran != set(expect):
-                failures.append(f"{label}: launched {sorted(ran)}, want "
-                                f"{sorted(expect)}")
+            ran = {k: n for k, n in launches.items() if n > 0}
+            if ran != expect:
+                failures.append(f"{label}: launched {ran}, want {expect}")
             valid_cuda = out["valid"].cpu().numpy()
             R_cuda = out["R"].cpu().numpy()
             if not np.isfinite(R_cuda).all() or R_cuda.shape != (8, 3, 3):
@@ -771,7 +902,7 @@ def main() -> None:
                   f"{[float(x) for x in d_rot]} (<= 0.5), matches cuda "
                   f"{out['num_matches'][:2].cpu().tolist()} cpu "
                   f"{cpu['num_matches'].tolist()}")
-            if gates and expect[1] != "extract_brief_binned":
+            if same_bits:
                 # K8-K10's routes describe with K2's function: their bits
                 # agree with the default route's on the same keypoints
                 with torch.no_grad():
@@ -785,6 +916,10 @@ def main() -> None:
                       f"same keypoints={same_kp}, bit agreement {agree:.6f} "
                       f"(>= 0.999) over {int(v.sum())} keypoints")
                 del rd
+
+    # ---- 4b. the calibration tool (numpy on the host, the reference's own
+    # design) on seeded synthetic chessboard views, two of them corrupted
+    summary["calibration"] = _calibration_line(np, check)
 
     # ---- 5. sequence runner -----------------------------------------------------
     summary["sequence runner"] = _runner_phase(torch, np, card, check)
@@ -802,13 +937,49 @@ def main() -> None:
         fail("; ".join(failures))
     line = {"kernels": [rows[k] for k in kernels.KERNELS]}
     with open(OUT_DIR / "chip_smoke.json", "w") as f:
-        json.dump(dict(line, card=card, paths=summary, queued_ms=queued), f,
-                  indent=1)
+        json.dump(dict(line, card=card, paths=summary, queued_ms=queued,
+                       modes=modes), f, indent=1)
     say(f"nvidia-smi: {card}")
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def _calibration_line(np, check):
+    """`tools.calibrate.calibrate_with_filtering` on 12 seeded views of a
+    7x7 board (K fx 800, fy 790, k1 -0.08, k2 0.02, 0.05 px noise), views 3
+    and 7 moved by 8 px noise: those two dropped, K within 1.5%."""
+    from rpe_tpu_torch.geometry.vp_refine import _so3_exp_np
+    from rpe_tpu_torch.tools.calibrate import calibrate_with_filtering, \
+        make_object_points, project
+
+    g = np.random.default_rng(7)
+    K = np.array([[800.0, 0, 480.0], [0, 790.0, 360.0], [0, 0, 1.0]])
+    obj = make_object_points(7, 7, 0.04)
+    objs, imgs = [], []
+    for v in range(12):
+        rvec = g.normal(size=3) * 0.35
+        tvec = np.array([g.uniform(-0.1, 0.1), g.uniform(-0.1, 0.1),
+                         g.uniform(0.5, 1.0)])
+        tvec[:2] -= (_so3_exp_np(rvec) @ obj.mean(0))[:2]
+        pts = project(obj, K, np.array([-0.08, 0.02]), rvec, tvec)
+        objs.append(obj)
+        imgs.append(pts + g.normal(size=pts.shape)
+                    * (8.0 if v in (3, 7) else 0.05))
+    t0 = time.perf_counter()
+    rms, Kc, dist, errs, keep = calibrate_with_filtering(
+        objs, imgs, (960, 720), error_threshold=1.0, min_keep=5)
+    dt = time.perf_counter() - t0
+    fx_err = abs(Kc[0, 0] / K[0, 0] - 1)
+    check("calibration (host)", not keep[3] and not keep[7]
+          and keep.sum() == 10 and fx_err < 0.015 and rms < 0.3,
+          f"kept {int(keep.sum())}/12 views (3 and 7 dropped="
+          f"{not keep[3] and not keep[7]}), rms {rms:.4f} px, fx "
+          f"{Kc[0, 0]:.3f} fy {Kc[1, 1]:.3f} (truth 800, 790), k1 "
+          f"{dist[0]:.4f}, {dt:.2f} s on the host")
+    return dict(rms=rms, kept=int(keep.sum()), fx=float(Kc[0, 0]),
+                fy=float(Kc[1, 1]), seconds=dt)
 
 
 def _ckpt_records(path):
@@ -1467,24 +1638,25 @@ def _edge_slots(torch, np, dev, f, nb, cap, seed=3):
                    for m in (ry >= 0, const))
 
 
-def brief_footprints(torch, m10, m01, live):
+def brief_footprints(torch, m10, m01, live, kind=None):
     """Row-major patch indices that K2-K12 need of each live slot, given
     the (F, S) moments and live mask: "whole" the patch (961,), "ic" the
-    IC mask's pixels (749,), "k2" (L, 512) the pattern rotated to each live
-    slot's angle atan2(m01, m10) and "k12" (L, 512) its steering bin's
-    samples, as the plain versions sample them."""
+    IC mask's pixels (749,), "k2" (L, 512) the pattern `kind` (RPE_BRIEF
+    unless given) rotated to each live slot's angle atan2(m01, m10) and
+    "k12" (L, 512) its steering bin's samples, as the plain versions
+    sample them."""
     import numpy as np
 
     from rpe_tpu_torch.ops.orb import PATCH, _ic_angle_masks, angle_bins, \
         brief_bin_tables, steered_sample_index
 
     dev = m10.device
-    ix, iy = brief_bin_tables()
+    ix, iy = brief_bin_tables(kind=kind)
     k12 = torch.from_numpy((iy * PATCH + ix).astype(np.int64)).to(dev)
     return dict(
         whole=torch.arange(PATCH * PATCH, device=dev),
         ic=torch.from_numpy(np.flatnonzero(_ic_angle_masks()[0])).to(dev),
-        k2=steered_sample_index(torch.atan2(m01, m10)[live]),
+        k2=steered_sample_index(torch.atan2(m01, m10)[live], kind=kind),
         k12=k12[angle_bins(m10[live], m01[live]).long()])
 
 

@@ -27,11 +27,14 @@
 //     any: the raw rows inside the IC mask (|u| <= umax[|v|]) into
 //     registers, the blurred rows by cp.async into shared memory (no
 //     registers held), neighbouring lanes on neighbouring addresses;
-//   - only the blurred pixels that a sample can reach are copied: the
-//     wrapper holds the pattern within radius SAMPLE_R = 13, so a rotated
-//     point rounds to |ix|, |iy| <= 13, and the two outer rows and columns
-//     on each side are never read (K2's clamp to them acts only on
-//     non-finite moments);
+//   - only the blurred pixels that a sample can reach are copied: for a
+//     pattern within radius SAMPLE_R = 13 (the default, Gaussian one) a
+//     rotated point rounds to |ix|, |iy| <= 13, and the two outer rows and
+//     columns on each side are never read (K2's clamp to them acts only on
+//     non-finite moments); a pattern that reaches further (OpenCV's, to
+//     radius 18.4) takes the wide mode, which copies the whole patch and
+//     clamps K2's rotated samples to its rim, as the plain version clips
+//     them;
 //   - the raw patch never goes to shared memory: each lane folds its rows
 //     into m10, m01 with the exact weights u, v of its column and row, and
 //     a butterfly of shuffles gives every lane the same sums (slot_warp.cuh
@@ -53,6 +56,12 @@
 // (ops/extract.py `_brief_tables`) so that each warp-wide load reads
 // consecutive addresses.
 //
+// Modes (template parameters, chosen by the launcher's `mode` bits): K2 or
+// K12; the sample radius R, SAMPLE_R or WIDE_R; QUANT, each sampled value
+// rounded half-to-even (rintf) before the compare, as RPE_BRIEF_QUANT asks.
+// The wrapper picks R from the pattern, so the default path runs the
+// narrow, unrounded code.
+//
 // Arithmetic: built with -fmad=false, so each product rounds before its
 // sum as in the plain version. The moments sum in another order than the
 // plain version's (lane rows in order, then the butterfly), within its
@@ -66,25 +75,40 @@
 #include "error_string.cuh"
 #include "slot_warp.cuh"
 
-#define SAMPLE_R 13           // rotated samples round to |ix|, |iy| <= 13
+#define SAMPLE_R 13           // narrow mode: samples round to |ix|, |iy| <= 13
+#define WIDE_R PATCH_R        // wide mode: samples clip to the patch rim
 #define WARPS 4
 #define NBINS 30
+#define MODE_BINNED 1         // the launcher's mode bits
+#define MODE_WIDE 2
+#define MODE_QUANT 4
 
 // The wrapper holds the IC mask's extents (slot_warp.cuh `kUmax`) to ops/
-// orb.py `_ic_angle_masks()`, and the BRIEF pattern to SAMPLE_R, when it
-// loads the library (extract_brief_layout).
+// orb.py `_ic_angle_masks()`, and picks the mode from the BRIEF pattern's
+// reach and SAMPLE_R, when it loads the library (extract_brief_layout).
 
 // Row-major patch index of the rotated pattern point (px, py), clamped to
-// the pixels copied (|ix|, |iy| <= SAMPLE_R): with finite moments
-// |(ca, sa)| <= 1 and the clamp never acts; it keeps non-finite ones
-// inside the copy.
+// the pixels copied (|ix|, |iy| <= R). For R = SAMPLE_R and a pattern
+// within it, finite moments give |(ca, sa)| <= 1 and the clamp never acts;
+// it keeps non-finite ones inside the copy. For R = WIDE_R it is the plain
+// version's clip to the patch.
+template <int R>
 __device__ __forceinline__ int sample_index(float px, float py, float ca,
                                             float sa) {
     const float rx = px * ca - py * sa;
     const float ry = px * sa + py * ca;
-    const int ix = min(max(__float2int_rn(rx), -SAMPLE_R), SAMPLE_R);
-    const int iy = min(max(__float2int_rn(ry), -SAMPLE_R), SAMPLE_R);
+    const int ix = min(max(__float2int_rn(rx), -R), R);
+    const int iy = min(max(__float2int_rn(ry), -R), R);
     return (iy + PATCH_R) * PATCH + ix + PATCH_R;
+}
+
+template <bool QUANT>
+__device__ __forceinline__ unsigned brief_bit(float v0, float v1) {
+    if (QUANT) {
+        v0 = rintf(v0);
+        v1 = rintf(v1);
+    }
+    return v0 < v1 ? 1u : 0u;
 }
 
 // pat: float4 (x0, y0, x1, y1) of pair lane * 8 + k at [k * 32 + lane];
@@ -92,7 +116,7 @@ __device__ __forceinline__ int sample_index(float px, float py, float ca,
 // row-major sample indices iy * 31 + ix (low and high 16 bits) of pair
 // lane * 8 + h * 4 + q; bin_cs: the bins' cos (30) then sin (30).
 // Grid (CAP / WARPS, NB, F); tables and outputs in (F, NB, CAP) slot order.
-template <bool BINNED>
+template <bool BINNED, int R, bool QUANT>
 __global__ void __launch_bounds__(WARPS * 32, 32 / WARPS)
 extract_brief_kernel(const float* __restrict__ atlas, const float* __restrict__ blur,
                      const int* __restrict__ tbl_x0, const int* __restrict__ rel_y,
@@ -123,7 +147,7 @@ extract_brief_kernel(const float* __restrict__ atlas, const float* __restrict__ 
     // is used; rows and columns past the atlas clamp to its edge, as the
     // plain version's gather. Raw: rows inside the IC mask, into
     // registers (lane 31, u = 16, lies outside every mask row). Blurred: the
-    // rows and columns within SAMPLE_R of the centre, into shared memory.
+    // rows and columns within R of the centre, into shared memory.
     const int y0 = b * band + ry;
     const size_t col = (size_t)blockIdx.z * HA * WP
                        + min(max(x0 + min(lane, PATCH - 1), 0), WP - 1);
@@ -135,7 +159,7 @@ extract_brief_kernel(const float* __restrict__ atlas, const float* __restrict__ 
 #pragma unroll
     for (int r = 0; r < PATCH; ++r) {
         const size_t o = (size_t)min(max(y0 + r, 0), HA - 1) * WP;
-        if (abs(r - PATCH_R) <= SAMPLE_R && au <= SAMPLE_R)
+        if (abs(r - PATCH_R) <= R && au <= R)
             cp_async4(sb + r * PATCH + lane, Bl + o);
         raw[r] = au <= umax_of(abs(r - PATCH_R)) ? __ldg(A + o) : 0.f;
     }
@@ -173,9 +197,8 @@ extract_brief_kernel(const float* __restrict__ atlas, const float* __restrict__ 
             const unsigned qs[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
             for (int k = 0; k < 4; ++k) {
-                const float v0 = sb[qs[k] & 0xffffu];
-                const float v1 = sb[qs[k] >> 16];
-                word[h] |= (v0 < v1 ? 1u : 0u) << (8 * k);
+                word[h] |= brief_bit<QUANT>(sb[qs[k] & 0xffffu],
+                                            sb[qs[k] >> 16]) << (8 * k);
             }
         }
     } else {
@@ -185,41 +208,57 @@ extract_brief_kernel(const float* __restrict__ atlas, const float* __restrict__ 
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
             const float4 p = pat[k * 32 + lane];
-            const float v0 = sb[sample_index(p.x, p.y, ca, sa)];
-            const float v1 = sb[sample_index(p.z, p.w, ca, sa)];
-            word[k >> 2] |= (v0 < v1 ? 1u : 0u) << (8 * (k & 3));
+            word[k >> 2] |= brief_bit<QUANT>(
+                sb[sample_index<R>(p.x, p.y, ca, sa)],
+                sb[sample_index<R>(p.z, p.w, ca, sa)]) << (8 * (k & 3));
         }
     }
     *out = make_uint2(word[0], word[1]);
 }
 
-// binned: 0 launches K2, 1 launches K12 (bin_pairs and bin_cs are read
-// only then, pat only for K2)
-extern "C" int extract_brief_launch(int binned, const float* atlas, const float* blur,
+template <bool BINNED, int R, bool QUANT>
+static void launch(dim3 grid, cudaStream_t s, const float* atlas,
+                   const float* blur, const int* tbl_x0, const int* rel_y,
+                   const void* pat, const void* bin_pairs, const float* bin_cs,
+                   uint8_t* bits, float* m10, float* m01, int HA, int WP,
+                   int CAP, int band) {
+    extract_brief_kernel<BINNED, R, QUANT><<<grid, WARPS * 32, 0, s>>>(
+        atlas, blur, tbl_x0, rel_y, (const float4*)pat,
+        (const uint4*)bin_pairs, bin_cs, bits, m10, m01, HA, WP, CAP, band);
+}
+
+// mode: MODE_BINNED launches K12 (bin_pairs and bin_cs are read only then,
+// pat only for K2), MODE_WIDE the sample radius WIDE_R, MODE_QUANT rounded
+// samples; another bit is refused
+extern "C" int extract_brief_launch(int mode, const float* atlas, const float* blur,
                                     const int* tbl_x0, const int* rel_y,
                                     const void* pat, const void* bin_pairs,
                                     const float* bin_cs, uint8_t* bits,
                                     float* m10, float* m01, int F, int HA,
                                     int WP, int NB, int CAP, int band,
                                     void* stream) {
+    if (mode & ~(MODE_BINNED | MODE_WIDE | MODE_QUANT))
+        return (int)cudaErrorInvalidValue;
     const dim3 grid((CAP + WARPS - 1) / WARPS, NB, F);
     cudaStream_t s = (cudaStream_t)stream;
-    const float4* p4 = (const float4*)pat;
-    const uint4* b4 = (const uint4*)bin_pairs;
-    if (binned)
-        extract_brief_kernel<true><<<grid, WARPS * 32, 0, s>>>(
-            atlas, blur, tbl_x0, rel_y, p4, b4, bin_cs, bits, m10, m01, HA, WP,
-            CAP, band);
-    else
-        extract_brief_kernel<false><<<grid, WARPS * 32, 0, s>>>(
-            atlas, blur, tbl_x0, rel_y, p4, b4, bin_cs, bits, m10, m01, HA, WP,
-            CAP, band);
+    typedef void (*Launch)(dim3, cudaStream_t, const float*, const float*,
+                           const int*, const int*, const void*, const void*,
+                           const float*, uint8_t*, float*, float*, int, int,
+                           int, int);
+    static const Launch table[8] = {
+        launch<false, SAMPLE_R, false>, launch<true, SAMPLE_R, false>,
+        launch<false, WIDE_R, false>,   launch<true, WIDE_R, false>,
+        launch<false, SAMPLE_R, true>,  launch<true, SAMPLE_R, true>,
+        launch<false, WIDE_R, true>,    launch<true, WIDE_R, true>};
+    table[mode](grid, s, atlas, blur, tbl_x0, rel_y, pat, bin_pairs, bin_cs,
+                bits, m10, m01, HA, WP, CAP, band);
     return (int)cudaGetLastError();
 }
 
 // What the wrapper's checks compare: the IC mask's extents umax[0..15], then
-// SAMPLE_R, the radius within which the pattern must lie.
+// SAMPLE_R and WIDE_R, the narrow and wide modes' sample radii.
 extern "C" void extract_brief_layout(int* out) {
     for (int v = 0; v <= PATCH_R; ++v) out[v] = kUmax[v];
     out[PATCH_R + 1] = SAMPLE_R;
+    out[PATCH_R + 2] = WIDE_R;
 }

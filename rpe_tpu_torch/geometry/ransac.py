@@ -4,13 +4,14 @@
 Per pair: NUM_HYPOTHESES minimal samples from the valid matches (threefry
 draws, ops bit-equal to the reference), the 5-point (or 8-point) solver on
 all of them at once, Sampson scoring of every hypothesis against every
-match, count-then-cheirality-then-MSAC selection, least-squares refits, and
-optionally the DEGENSAC rescue and the ambiguity blend. Every tensor carries
-a leading pair axis P.
+match, count-then-cheirality-then-MSAC selection, optionally LO-RANSAC's
+local optimisation, least-squares refits, and optionally the DEGENSAC rescue
+and the ambiguity blend. Every tensor carries a leading pair axis P.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import rng
@@ -40,6 +41,66 @@ def gather_points(pts, idx):
     return out.reshape(*idx.shape, 2)
 
 
+# LO-RANSAC's annealed threshold multipliers, in float32 as the reference's
+LO_MULTIPLIERS = np.array([4.0, 2.0, 1.4142135, 1.0], np.float32)
+
+
+def _truncated_loss(E, pts1_n, pts2_n, valid_f, thr2):
+    """Truncated MSAC loss sum(min(d2, thr2)) over the valid matches, a
+    non-finite residual counting as thr2: E (P, ..., 3, 3), pts (P, N, 2)
+    broadcast against E's middle axes, valid_f (P, N) float, thr2
+    broadcastable to the residuals (P, ..., N)."""
+    extra = E.dim() - 3
+    shape = (pts1_n.shape[0],) + (1,) * extra + pts1_n.shape[1:]
+    d2 = sampson_error_sq(E, pts1_n.reshape(shape), pts2_n.reshape(shape))
+    d2 = torch.where(torch.isfinite(d2), d2, thr2)
+    return (torch.minimum(d2, thr2)
+            * valid_f.reshape(shape[:-1])).sum(-1)
+
+
+def local_optimization(key, E_best, inlier_mask, pts1_n, pts2_n, valid_mask,
+                       thr2):
+    """LO-RANSAC (Lebeda, Chum, Matas, BMVC 2012) on the winner of each
+    pair, as the reference runs it (rpe_tpu/geometry/ransac.py:179-233):
+    8 weighted 8-point fits on 16 points drawn from the winner's inliers
+    (`sample_minimal_indices` with fold_in(key, 11)), the best of those and
+    the winner by truncated MSAC loss, then weighted 8-point refits at the
+    thresholds thr2 * LO_MULTIPLIERS, each taken when it has >= 8 points
+    and does not raise the loss at thr2. thr2 (P, 1). Returns (E (P, 3, 3),
+    inlier_mask (P, N)) of the result at thr2."""
+    p, n = valid_mask.shape
+    dt = pts1_n.dtype
+    ar = torch.arange(p, device=pts1_n.device)
+    valid_f = valid_mask.to(dt)
+    in_idx = sample_minimal_indices(rng.fold_in(key, 11), inlier_mask, 8,
+                                    sample_size=16)                # (P, 8, 16)
+    w_in = torch.zeros((p, 8, n), dtype=dt, device=pts1_n.device)
+    w_in.scatter_(2, in_idx, 1.0)
+    E_in = eight_point(pts1_n[:, None], pts2_n[:, None],
+                       weights=w_in * valid_f[:, None])
+    E_in, _, _ = project_to_essential(E_in)
+    E_cand = torch.cat([E_best[:, None], E_in], dim=1)            # (P, 9)
+    loss_cand = _truncated_loss(E_cand, pts1_n, pts2_n, valid_f,
+                                thr2[:, :, None])
+    ci = torch.argmin(loss_cand, dim=-1)
+    E_cur, loss_cur = E_cand[ar, ci], loss_cand[ar, ci]
+    for mult in torch.from_numpy(LO_MULTIPLIERS).to(pts1_n.device):
+        thr_m = thr2 * mult
+        d2c = sampson_error_sq(E_cur, pts1_n, pts2_n)
+        d2c = torch.where(torch.isfinite(d2c), d2c, thr_m)
+        w = ((d2c < thr_m) & valid_mask).to(dt)
+        enough = w.sum(-1) >= 8
+        E_new, _, _ = project_to_essential(eight_point(pts1_n, pts2_n,
+                                                       weights=w))
+        loss_new = _truncated_loss(E_new, pts1_n, pts2_n, valid_f, thr2)
+        take = enough & (loss_new <= loss_cur)
+        E_cur = torch.where(take[:, None, None], E_new, E_cur)
+        loss_cur = torch.where(take, loss_new, loss_cur)
+    d2b = sampson_error_sq(E_cur, pts1_n, pts2_n)
+    d2b = torch.where(torch.isfinite(d2b), d2b, thr2)
+    return E_cur, (d2b < thr2) & valid_mask
+
+
 def ransac_essential(key, pts1_n, pts2_n, valid_mask, threshold_n,
                      num_hypotheses: int = 2048, refit_rounds: int = 2,
                      solver: str = "8pt", degensac: bool = False,
@@ -47,13 +108,10 @@ def ransac_essential(key, pts1_n, pts2_n, valid_mask, threshold_n,
     """Batched-hypothesis essential-matrix RANSAC over P pairs.
 
     key (P, 2); pts (P, N, 2) normalized coords; valid_mask (P, N);
-    threshold_n (P,) Sampson threshold in normalized units. Returns dict
+    threshold_n (P,) Sampson threshold in normalized units; `lo` runs
+    `local_optimization` on the winner before the refits. Returns dict
     with E (P, 3, 3), inlier_mask (P, N), num_inliers (P,), ok (P,).
     """
-    if lo:
-        raise NotImplementedError(
-            "RansacConfig.lo (LO-RANSAC) is not ported yet: ROADMAP.md "
-            'Queue 1, "Switches that raise NotImplementedError today"')
     p, n = valid_mask.shape
     ar = torch.arange(p, device=pts1_n.device)
     num_valid = valid_mask.sum(-1, dtype=torch.int32)
@@ -109,6 +167,9 @@ def ransac_essential(key, pts1_n, pts2_n, valid_mask, threshold_n,
     E_best = E_h[ar, best]
     inlier_mask = inliers_h[ar, best]
     thr2 = thr2[:, 0]                                              # (P, 1)
+    if lo:
+        E_best, inlier_mask = local_optimization(
+            key, E_best, inlier_mask, pts1_n, pts2_n, valid_mask, thr2)
 
     for _ in range(refit_rounds):
         w = inlier_mask.to(pts1_n.dtype)

@@ -35,6 +35,19 @@ def atlas_layout(h: int, w: int, nlevels: int, scale_factor: float):
     return tuple(offsets), total, wp
 
 
+def build_atlas(levels, h: int, w: int, nlevels: int, scale_factor: float):
+    """Stack pyramid levels (F, h_l, w_l) (ops/pyramid.py `build_pyramid`)
+    into the atlas at `atlas_layout`'s offsets, zeros elsewhere; returns
+    (atlas (F, HA, WP), layout)."""
+    offsets, total, wp = atlas_layout(h, w, nlevels, scale_factor)
+    lvl0 = levels[0]
+    atlas = torch.zeros((lvl0.shape[0], total, wp), dtype=lvl0.dtype,
+                        device=lvl0.device)
+    for lvl, (off, lh, lw) in zip(levels, offsets):
+        atlas[:, off:off + lh, :lw] = lvl
+    return atlas, (offsets, total, wp)
+
+
 def _linear_resize_matrix(n_out: int, n_in: int):
     """(n_out, n_in) numpy f32 weights of jax.image.resize method='linear'
     along one axis: half-pixel centers, triangle kernel dilated by the zoom

@@ -16,8 +16,11 @@ space (S = NB*CAP slots per frame); parked slots (rel_y < 0) give zeros.
   K10 `extract_patches_t`              blurred patches transposed, m10, m01
       (`extract_windows_t`).
 
-The reference pads each patch to 32x32 (a TPU lane layout); here patches
-are 31x31. `extract_route` picks the route from the reference's kernel
+K2 and K12 follow RPE_BRIEF and RPE_BRIEF_QUANT (read at call time, or
+given): a pattern that reaches past the kernel's narrow sample radius
+(OpenCV's) takes its wide mode, and rounded samples their own
+(`brief_mode`). The reference pads each patch to 32x32 (a TPU lane
+layout); here patches are 31x31. `extract_route` picks the route from the reference's kernel
 gates. Each wrapper launches its CUDA kernel on CUDA tensors and takes its
 plain version on CPU tensors.
 """
@@ -33,8 +36,8 @@ import torch
 from . import kernels
 from .fast import kernel_gate
 from .orb import N_BRIEF_BINS, PATCH, PATCH_R, _ic_angle_masks, \
-    brief_bin_tables, brief_bin_vectors, brief_pattern, ic_moments, \
-    steered_brief, steered_brief_t_binned
+    brief_bin_tables, brief_bin_vectors, brief_kind, brief_pattern, \
+    brief_quant, ic_moments, steered_brief, steered_brief_t_binned
 
 
 def extract_route() -> str:
@@ -63,10 +66,10 @@ def extract_route() -> str:
     return "extract_patches"
 
 
-def _brief_tables_np():
-    """K2's and K12's static tables in csrc/extract_brief.cu's layouts, so
-    that each warp-wide load reads consecutive addresses (a lane samples
-    pairs lane * 8 + k, k < 8):
+def _brief_tables_np(kind: str | None = None):
+    """K2's and K12's static tables of the BRIEF pattern `brief_kind(kind)`
+    in csrc/extract_brief.cu's layouts, so that each warp-wide load reads
+    consecutive addresses (a lane samples pairs lane * 8 + k, k < 8):
       pat (256, 4) float32: (x0, y0, x1, y1) of pair lane * 8 + k at row
         k * 32 + lane;
       pairs (30, 2, 32, 4) int32: at [b, h, lane, q], the two row-major
@@ -74,8 +77,8 @@ def _brief_tables_np():
         (`brief_bin_tables`), point 0 in the low and point 1 in the high 16
         bits;
       bin_cs (60,) float32: the bins' cos, then sin."""
-    pat = brief_pattern().astype(np.float32)
-    ix, iy = brief_bin_tables()
+    pat = brief_pattern(kind=kind).astype(np.float32)
+    ix, iy = brief_bin_tables(kind=kind)
     idx = (iy * PATCH + ix).astype(np.int32)                  # (30, 512)
     pairs = (idx[:, :256] | (idx[:, 256:] << 16)).reshape(
         N_BRIEF_BINS, 32, 2, 4)
@@ -83,11 +86,25 @@ def _brief_tables_np():
             pairs.transpose(0, 2, 1, 3), np.concatenate(brief_bin_vectors()))
 
 
+def _brief_tables(dev: torch.device, kind: str | None = None):
+    """`_brief_tables_np(kind)` on `dev`, copied there once per kind."""
+    return _brief_tables_on(dev, brief_kind(kind))
+
+
 @functools.lru_cache(maxsize=None)
-def _brief_tables(dev: torch.device):
-    """`_brief_tables_np` on `dev`, copied there once."""
+def _brief_tables_on(dev: torch.device, kind: str):
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                 for a in _brief_tables_np())
+                 for a in _brief_tables_np(kind))
+
+
+def pattern_reach2(kind: str | None = None) -> int:
+    """Squared radius of the BRIEF pattern's outermost point."""
+    return _reach2(brief_kind(kind))
+
+
+@functools.lru_cache(maxsize=None)
+def _reach2(kind: str) -> int:
+    return int((brief_pattern(kind=kind).astype(np.int64) ** 2).sum(-1).max())
 
 
 def ic_umax():
@@ -110,19 +127,45 @@ def _check_umax(source, umax):
 def _brief_launcher(lib):
     """K2's and K12's launcher with its argument types set, once per loaded
     library, after holding what the kernel hard-codes to what the port
-    computes: its IC mask extents to `ic_umax()`, and its sample radius
-    (the blurred pixels it copies, its unclamped K2 samples) to the BRIEF
-    pattern's."""
-    buf = (ctypes.c_int * (PATCH_R + 2))()
-    lib.extract_brief_layout(buf)
-    _check_umax("extract_brief.cu", buf[:PATCH_R + 1])
-    sample_r = buf[PATCH_R + 1]
-    reach = int((brief_pattern().astype(np.int64) ** 2).sum(-1).max())
-    if reach > sample_r ** 2:
+    computes: its IC mask extents to `ic_umax()`; its narrow sample radius
+    (the blurred pixels it copies, its unclamped K2 samples) to the default
+    pattern's reach, so the default path takes the narrow mode; its wide
+    radius to the patch rim, where the plain version clips samples."""
+    layout = _brief_layout(lib)
+    _check_umax("extract_brief.cu", layout[:PATCH_R + 1])
+    narrow_r, wide_r = layout[PATCH_R + 1:]
+    reach = pattern_reach2("gauss")
+    if reach > narrow_r ** 2:
         raise RuntimeError(f"extract_brief.cu samples within radius "
-                           f"{sample_r}; the BRIEF pattern reaches radius "
-                           f"{reach ** 0.5:.2f}")
+                           f"{narrow_r}; the default BRIEF pattern reaches "
+                           f"radius {reach ** 0.5:.2f}")
+    if wide_r != PATCH_R:
+        raise RuntimeError(f"extract_brief.cu's wide mode clamps samples to "
+                           f"radius {wide_r}; the plain version clips them to "
+                           f"the patch rim, radius {PATCH_R}")
     return _typed(lib.extract_brief_launch, 10)
+
+
+@functools.lru_cache(maxsize=None)
+def _brief_layout(lib):
+    """What `lib` (a build of csrc/extract_brief.cu) hard-codes: the IC
+    mask's extents umax[0..15], then its narrow and wide sample radii."""
+    buf = (ctypes.c_int * (PATCH_R + 3))()
+    lib.extract_brief_layout(buf)
+    return tuple(buf)
+
+
+# csrc/extract_brief.cu's mode bits
+MODE_BINNED, MODE_WIDE, MODE_QUANT = 1, 2, 4
+
+
+def brief_mode(lib, binned: bool, quant: bool, kind: str) -> int:
+    """The launcher's mode for K2 (K12 with `binned`): the wide sample
+    radius when the pattern `kind` reaches past the narrow one, rounded
+    samples with `quant`."""
+    wide = pattern_reach2(kind) > _brief_layout(lib)[PATCH_R + 1] ** 2
+    return ((MODE_BINNED if binned else 0) | (MODE_WIDE if wide else 0)
+            | (MODE_QUANT if quant else 0))
 
 
 @functools.lru_cache(maxsize=None)
@@ -191,24 +234,27 @@ def extract_patches_t_plain(atlas, blurred, tbl_x0, rel_y, band: int):
 
 
 def extract_brief_plain(atlas, blurred, tbl_x0, rel_y, band: int,
-                        binned: bool = False):
+                        binned: bool = False, quant: bool | None = None,
+                        kind: str | None = None):
     """Plain version of K2 (and with `binned`, K12): IC moments of the raw
     patches, then BRIEF of the blurred patches at the angle atan2(m01, m10)
     through cos/sin, as the reference computes it off the TPU
     (rpe_tpu/ops/atlas.py:365-449, ops/orb.py:436-446); K12 samples the
     transposed patches at the moments' steering bin
-    (`orb.steered_brief_t_binned`)."""
+    (`orb.steered_brief_t_binned`). The pattern is `brief_kind(kind)`, and
+    samples round half-to-even first when `brief_quant(quant)`."""
     f, s = tbl_x0.shape[0], tbl_x0.shape[1] * tbl_x0.shape[2]
     if binned:
         blur_t, m10, m01 = extract_patches_t_plain(atlas, blurred, tbl_x0,
                                                    rel_y, band)
         bits = steered_brief_t_binned(blur_t.reshape(f * s, PATCH, PATCH),
-                                      m10.reshape(-1), m01.reshape(-1))
+                                      m10.reshape(-1), m01.reshape(-1),
+                                      quant, kind)
     else:
         blur, m10, m01 = extract_patches_moments_plain(atlas, blurred, tbl_x0,
                                                        rel_y, band)
         bits = steered_brief(blur.reshape(f * s, PATCH, PATCH),
-                             torch.atan2(m01, m10).reshape(-1))
+                             torch.atan2(m01, m10).reshape(-1), quant, kind)
     return bits.reshape(f, s, 256), m10, m01
 
 
@@ -234,30 +280,36 @@ def _ptrs(*tensors):
 
 
 def extract_brief(atlas, blurred, tbl_x0, rel_y, band: int,
-                  binned: bool = False):
-    """K2 (K12 with `binned`): (bits (F, S, 256) uint8, m10, m01 (F, S)).
-    CUDA tensors launch csrc/extract_brief.cu; CPU tensors take
-    `extract_brief_plain`."""
+                  binned: bool = False, quant: bool | None = None,
+                  kind: str | None = None):
+    """K2 (K12 with `binned`): (bits (F, S, 256) uint8, m10, m01 (F, S))
+    with the BRIEF pattern `brief_kind(kind)`, samples rounded when
+    `brief_quant(quant)` (both read from the environment when None). CUDA
+    tensors launch csrc/extract_brief.cu in the mode those ask for
+    (`brief_mode`); CPU tensors take `extract_brief_plain`."""
+    kind, quant = brief_kind(kind), brief_quant(quant)
     if atlas.device.type == "cpu":
         return extract_brief_plain(atlas, blurred, tbl_x0, rel_y, band,
-                                   binned)
+                                   binned, quant, kind)
     return _launch_brief(kernels.lib("extract_brief"), atlas, blurred, tbl_x0,
-                         rel_y, band, binned)
+                         rel_y, band, binned, quant, kind)
 
 
-def _launch_brief(lib, atlas, blurred, tbl_x0, rel_y, band, binned):
+def _launch_brief(lib, atlas, blurred, tbl_x0, rel_y, band, binned,
+                  quant=False, kind="gauss"):
     """K2 (K12 with `binned`) launched from `lib`, a build of
-    csrc/extract_brief.cu."""
+    csrc/extract_brief.cu, with pattern `kind` and `quant`."""
     name = "extract_brief_binned" if binned else "extract_brief"
     f, ha, wp, nb, cap = _check(name, atlas, blurred, tbl_x0, rel_y)
     dev = atlas.device
-    pat, pairs, bin_cs = _brief_tables(dev)
+    pat, pairs, bin_cs = _brief_tables(dev, kind)
     bits = torch.empty((f, nb * cap, 256), dtype=torch.uint8, device=dev)
     m10 = torch.empty((f, nb * cap), dtype=torch.float32, device=dev)
     m01 = torch.empty_like(m10)
     fn = _brief_launcher(lib)
-    rc = fn(int(binned), *_ptrs(atlas, blurred, tbl_x0, rel_y, pat, pairs,
-                                bin_cs, bits, m10, m01),
+    rc = fn(brief_mode(lib, binned, quant, kind),
+            *_ptrs(atlas, blurred, tbl_x0, rel_y, pat, pairs, bin_cs, bits,
+                   m10, m01),
             f, ha, wp, nb, cap, int(band), kernels.stream_ptr(atlas))
     kernels.check(name, rc)
     return bits, m10, m01

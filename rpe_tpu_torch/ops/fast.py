@@ -3,8 +3,10 @@ fused rank-map kernel K1 (port of rpe_tpu/ops/fast.py and the function of
 rpe_tpu/ops/fast_pallas.py `fast_harris_rank_map`).
 
 Every map function works over the last two axes with any leading batch.
-Also the reference's kernel-gate environment switches (`kernel_gate`),
-which choose the ORB extraction route (ops/extract.py `extract_route`).
+`detect_level` is the per-level detector of the reference's RPE_NO_ATLAS
+path (K1 on each level image, then the border mask and the top-k). Also
+the reference's kernel-gate environment switches (`kernel_gate`), which
+choose the ORB extraction route (ops/extract.py `extract_route`).
 """
 
 from __future__ import annotations
@@ -167,3 +169,33 @@ def _launcher(lib):
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def border_mask(h: int, w: int, margin: int, device=None):
+    """(h, w) bool: True where a keypoint is allowed (static margins)."""
+    ys = torch.arange(h, device=device)[:, None]
+    xs = torch.arange(w, device=device)[None, :]
+    return (ys >= margin) & (ys < h - margin) & (xs >= margin) & (
+        xs < w - margin)
+
+
+def detect_level(img, threshold: float, margin: int, quota: int):
+    """FAST + nonmax + Harris top-`quota` selection on one pyramid level of
+    each frame, img (F, h, w) float32 (rpe_tpu/ops/fast.py `detect_level`):
+    K1's rank map (its plain version on a CPU tensor; its blur unused), -inf
+    within `margin` of the border, then `top_k_stable` over the flattened
+    map. Returns xy (F, quota, 2) float32 (x, y) level pixel coords,
+    harris (F, quota) float32 and valid (F, quota) bool. The margin covers
+    the 4 px edge band where K1 wraps and its plain version pads, so both
+    give the same keypoints."""
+    from .orb import top_k_stable
+
+    f, h, w = img.shape
+    rank, _ = fast_harris_rank_map(img, float(threshold))
+    rank = torch.where(border_mask(h, w, margin, img.device), rank,
+                       torch.full((), -torch.inf, dtype=rank.dtype,
+                                  device=img.device))
+    vals, flat = top_k_stable(rank.reshape(f, h * w), quota)
+    xy = torch.stack([(flat % w).to(torch.float32),
+                      (flat // w).to(torch.float32)], dim=-1)
+    return xy, vals, vals > -torch.inf

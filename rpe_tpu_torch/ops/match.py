@@ -35,6 +35,17 @@ from . import kernels
 _BIG = 3.0e38
 
 
+def unpack_descriptor_bits(packed):
+    """(..., N, 32) uint8 packed descriptors -> (..., N, 256) {0, 1} uint8,
+    bit b of byte j at column 8 j + b (little-endian, numpy's
+    `unpackbits(..., bitorder="little")`), so packed OpenCV ORB descriptors
+    go through the same matchers; on the input's device."""
+    packed = torch.as_tensor(packed, dtype=torch.uint8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(*packed.shape[:-1], packed.shape[-1] * 8)
+
+
 def hamming_distance_matrix(bits1, bits2):
     """Pairwise Hamming distances of {0,1} descriptors: (..., N1, B) x
     (..., N2, B) -> (..., N1, N2) float32, as |a| + |b| - 2 a.b (exact:

@@ -1,1 +1,6 @@
-"""rpe_tpu_torch.pipeline (see the package docstring)."""
+"""Pipeline layer: the estimator, batch processing, evaluation and
+orchestration (port of rpe_tpu.pipeline)."""
+
+from .estimator import PoseEstimator, estimate_pair
+
+__all__ = ["PoseEstimator", "estimate_pair"]

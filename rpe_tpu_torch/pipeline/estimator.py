@@ -29,7 +29,7 @@ from ..geometry.epipolar import normalize_points
 from ..geometry.ransac import ransac_essential
 from ..geometry.recover_pose import recover_pose
 from ..ops.match import match_hamming, match_l2, match_ratio
-from ..ops.orb import orb_detect_and_describe_atlas
+from ..ops.orb import orb_detect_and_describe
 from ..ops.sift import sift_detect_and_describe
 from ..utils.device import full_precision, resolve_device
 from ..utils.sanitize import audit_finite, audit_rotation
@@ -41,7 +41,7 @@ def detect_features(imgs, cfg: EstimatorConfig):
     method = cfg.feature_method.upper()
     if method == "ORB":
         o = cfg.orb
-        return orb_detect_and_describe_atlas(
+        return orb_detect_and_describe(
             imgs, nfeatures=o.nfeatures, nlevels=o.nlevels,
             scale_factor=o.scale_factor, fast_threshold=o.fast_threshold,
             max_kpts=o.max_kpts, extract_cap=o.extract_cap, band=o.band)

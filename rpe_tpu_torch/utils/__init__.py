@@ -1,1 +1,7 @@
-"""rpe_tpu_torch.utils (see the package docstring)."""
+"""Cross-cutting utilities: observability (timers, throughput, tracing),
+the finite-value audits, the device policy and synthetic test data (port
+of rpe_tpu.utils)."""
+
+from .observability import StageTimer, ThroughputMeter, log, sync, trace
+
+__all__ = ["StageTimer", "ThroughputMeter", "log", "sync", "trace"]

@@ -43,13 +43,13 @@ VARIANTS = {
     "full_blur": (
         "extract_brief",
         "the blurred patch copied whole, not only within the sample radius",
-        [("if (abs(r - PATCH_R) <= SAMPLE_R && au <= SAMPLE_R)",
+        [("if (abs(r - PATCH_R) <= R && au <= R)",
           "if (lane < PATCH)")]),
     "unclamped_samples": (
         "extract_brief",
         "K2's rotated samples not clamped to the copied pixels",
-        [("""    const int ix = min(max(__float2int_rn(rx), -SAMPLE_R), SAMPLE_R);
-    const int iy = min(max(__float2int_rn(ry), -SAMPLE_R), SAMPLE_R);
+        [("""    const int ix = min(max(__float2int_rn(rx), -R), R);
+    const int iy = min(max(__float2int_rn(ry), -R), R);
     return (iy + PATCH_R) * PATCH + ix + PATCH_R;""",
           """    return (__float2int_rn(ry) + PATCH_R) * PATCH + __float2int_rn(rx)
            + PATCH_R;""")]),
@@ -57,7 +57,7 @@ VARIANTS = {
         "extract_brief",
         "(a step to try) the blurred rows copied only over the pixels "
         "whose squares meet the radius-13 disc",
-        [("if (abs(r - PATCH_R) <= SAMPLE_R && au <= SAMPLE_R)",
+        [("if (abs(r - PATCH_R) <= R && au <= R)",
           "if (au < (int)((0x579abccddeeeeeull >> (4 * abs(r - PATCH_R))) "
           "& 15ull))")]),
     "warps8": (

@@ -40,6 +40,12 @@ def _source_sample_r():
     return int(m.group(1))
 
 
+def _source_wide_r():
+    m = re.search(r"#define WIDE_R (\w+)", SOURCE.read_text())
+    assert m, "WIDE_R not found in extract_brief.cu"
+    return PATCH_R if m.group(1) == "PATCH_R" else int(m.group(1))
+
+
 def test_kernel_umax_table_equals_ic_masks():
     """The extents the kernel hard-codes give `_ic_angle_masks()`'s mask:
     row v covers |u| <= umax[|v|]; the pattern lies within its sample
@@ -106,7 +112,7 @@ class _Lib:
 
 
 def _layout():
-    return _source_umax() + [_source_sample_r()]
+    return _source_umax() + [_source_sample_r(), _source_wide_r()]
 
 
 def test_launchers_set_argtypes_once_per_library():
@@ -124,8 +130,9 @@ def test_launchers_set_argtypes_once_per_library():
 
 
 @pytest.mark.parametrize("entry,delta,match", [
-    (PATCH_R, 1, "umax"), (PATCH_R + 1, -1, "radius")],
-    ids=["umax", "sample_radius"])
+    (PATCH_R, 1, "umax"), (PATCH_R + 1, -1, "radius"),
+    (PATCH_R + 2, -1, "patch rim")],
+    ids=["umax", "sample_radius", "wide_radius"])
 def test_brief_launcher_refuses_another_layout(entry, delta, match):
     layout = _layout()
     layout[entry] += delta
@@ -148,11 +155,13 @@ def test_patch_launcher_refuses_another_umax(v):
 
 # ---- the kernel's per-lane indexing, in numpy ------------------------------
 
-def _shared(patches):
+def _shared(patches, r=None):
     """(K, 31, 31) blurred patches as the kernel copies them: row-major,
-    only rows and columns within SAMPLE_R of the centre (the rest junk)."""
+    only rows and columns within its sample radius `r` (SAMPLE_R unless
+    given) of the centre (the rest junk)."""
+    r = _source_sample_r() if r is None else r
     out = np.full(patches.shape, np.nan, np.float32)
-    lo, hi = PATCH_R - _source_sample_r(), PATCH_R + _source_sample_r() + 1
+    lo, hi = PATCH_R - r, PATCH_R + r + 1
     out[:, lo:hi, lo:hi] = patches[:, lo:hi, lo:hi]
     return out.reshape(patches.shape[0], -1)
 
@@ -181,33 +190,37 @@ def _lane_moments(raw):
     return m10[:, 0], m01[:, 0]
 
 
-def _lane_bits(blur_s, ca, sa, bins):
+def _lane_bits(blur_s, ca, sa, bins, kind=None, r=None, quant=False):
     """(K, 256) bits as the kernel's lanes sample its shared blurred
-    patches with the wrapper's tables: K2 at (ca, sa) when bins is None
-    (no clamp), else K12 at those bins; a lane's 8 bytes are pairs
-    lane * 8 + k."""
-    pat, pairs, _ = textract._brief_tables_np()
+    patches with the wrapper's tables of pattern `kind`: K2 at (ca, sa)
+    when bins is None (clamped to radius `r`, SAMPLE_R unless given), else
+    K12 at those bins; each value rounded half-to-even first with `quant`
+    (rintf); a lane's 8 bytes are pairs lane * 8 + k."""
+    pat, pairs, _ = textract._brief_tables_np(kind)
     rows = np.arange(blur_s.shape[0])
     out = np.zeros((blur_s.shape[0], 256), np.uint8)
     for lane in range(32):
         for k in range(8):
             if bins is None:
                 px0, py0, px1, py1 = pat[k * 32 + lane]
-                i0, i1 = (_sample_index(px, py, ca, sa)
+                i0, i1 = (_sample_index(px, py, ca, sa, r)
                           for px, py in ((px0, py0), (px1, py1)))
             else:
                 q = pairs[bins, k // 4, lane, k % 4]
                 i0, i1 = q & 0xFFFF, q >> 16
             v0, v1 = blur_s[rows, i0], blur_s[rows, i1]
             assert not (np.isnan(v0) | np.isnan(v1)).any()
+            if quant:
+                v0, v1 = np.rint(v0), np.rint(v1)
             out[:, lane * 8 + k] = v0 < v1
     return out
 
 
-def _sample_index(px, py, ca, sa):
+def _sample_index(px, py, ca, sa, r=None):
     """The kernel's `sample_index`: rounded half to even (NaN to 0, as the
-    card's float-to-int conversion), clamped to |ix|, |iy| <= SAMPLE_R."""
-    r = _source_sample_r()
+    card's float-to-int conversion), clamped to |ix|, |iy| <= r (SAMPLE_R
+    unless given)."""
+    r = _source_sample_r() if r is None else r
     rx = np.float32(px) * ca - np.float32(py) * sa
     ry = np.float32(px) * sa + np.float32(py) * ca
     ix, iy = (np.clip(np.nan_to_num(np.rint(a), nan=0.0), -r, r)
@@ -297,3 +310,47 @@ def test_lane_model_keeps_nonfinite_moments_inside_the_tables():
                        np.full(5, -big, np.float32), None)
         _lane_bits(blur_s, ca, sa, None)
     _lane_bits(blur_s, None, None, bins)
+
+
+@pytest.mark.parametrize("kind,quant", [("cv2", True), ("cv2", False),
+                                        ("gauss", True)])
+def test_lane_layout_gives_plain_bits_in_each_mode(patches, kind, quant):
+    """The mode the wrapper picks (`brief_mode`: the wide radius for a
+    pattern past SAMPLE_R, rounded samples with `quant`), modelled as the
+    kernel's lanes run it, gives the plain versions' bits exactly: K2 and
+    K12 on the wrapper's tables of the pattern, with the copied region of
+    that mode (NaN outside)."""
+    raw, blur = patches
+    g = np.random.default_rng(5)
+    blur = (g.integers(0, 40, blur.shape) * 0.5).astype(np.float32)
+    wide = textract.pattern_reach2(kind) > _source_sample_r() ** 2
+    assert wide == (kind == "cv2")
+
+    class _L:
+        def extract_brief_layout(self, buf):
+            for i, x in enumerate(_layout()):
+                buf[i] = x
+
+    mode = textract.brief_mode(_L(), False, quant, kind)
+    assert mode == ((textract.MODE_WIDE if wide else 0)
+                    | (textract.MODE_QUANT if quant else 0))
+    assert textract.brief_mode(_L(), True, quant, kind) == \
+        mode | textract.MODE_BINNED
+    r = _source_wide_r() if wide else _source_sample_r()
+    blur_s = _shared(blur, r)
+    m10, m01 = _lane_moments(raw)
+    ang = torch.atan2(torch.from_numpy(m01), torch.from_numpy(m10))
+    ca, sa = (t.numpy() for t in (torch.cos(ang), torch.sin(ang)))
+    k2 = _lane_bits(blur_s, ca, sa, None, kind, r, quant)
+    np.testing.assert_array_equal(k2, steered_brief(
+        torch.from_numpy(blur), ang, quant=quant, kind=kind).numpy())
+    t10, t01 = torch.from_numpy(m10), torch.from_numpy(m01)
+    k12 = _lane_bits(blur_s, None, None, _lane_bins(m10, m01), kind, r,
+                     quant)
+    blur_t = torch.from_numpy(blur).transpose(-1, -2).contiguous()
+    np.testing.assert_array_equal(k12, steered_brief_t_binned(
+        blur_t, t10, t01, quant=quant, kind=kind).numpy())
+    if wide:
+        # the narrow copy would leave samples of this pattern unread
+        with pytest.raises(AssertionError):
+            _lane_bits(_shared(blur), ca, sa, None, kind, r, quant)

@@ -3,8 +3,9 @@ the kernel gates and the route each setting selects, the plain versions of
 K8, K9, K10 and K12 against the reference's Pallas kernels in interpret
 mode and against its XLA one-hot patches, the binned-steering tables, the
 plain K5 against the reference's grid-and-bisect construction, ORB end to
-end under each route's gates, and the switches the port refuses. The same
-numpy arrays go to both packages."""
+end under each route's gates and under the reference's other switches
+(RPE_BRIEF_QUANT, RPE_NO_ATLAS, RPE_NO_FUSED_ATLAS). The same numpy arrays
+go to both packages."""
 
 import re
 from pathlib import Path
@@ -25,7 +26,7 @@ from rpe_tpu_torch.geometry import five_point as tfp
 from rpe_tpu_torch.ops import extract as textract
 from rpe_tpu_torch.ops import fast as tfast
 from rpe_tpu_torch.ops import orb as torb
-from rpe_tpu_torch.pipeline.estimator import estimate_sequence_batched
+from rpe_tpu_torch.pipeline.estimator import detect_features
 from rpe_tpu_torch.utils.synthetic import make_sequence
 from torch_gates import default_extraction_gates  # noqa: F401
 
@@ -462,30 +463,52 @@ def test_orb_route_matches_reference(monkeypatch, frames, gates, route):
         np.testing.assert_allclose(t["angle"][v], ref["angle"][v], atol=1e-3)
 
 
-# ---- switches the port refuses ----------------------------------------------
+# ---- the reference's other switches ----------------------------------------
 
-@pytest.mark.parametrize("name,value,item", [
-    ("RPE_BRIEF_QUANT", "1", 13),
-    ("RPE_BRIEF_QUANT", "yes", 13),
-    ("RPE_NO_ATLAS", "1", 4),
-    ("RPE_NO_ATLAS", "0", 4),     # the reference reads any non-empty value
-    ("RPE_NO_FUSED_ATLAS", "1", 4),
-    ("RPE_BRIEF_QUANT", "0", None),
-    ("RPE_BRIEF_QUANT", "", None),
-    ("RPE_NO_ATLAS", "", None),
-])
-def test_unported_switches_raise(monkeypatch, name, value, item):
-    """A switch whose function is not ported raises, on the device="cpu"
-    path too, naming its ROADMAP item by title; off values do not."""
-    monkeypatch.setenv(name, value)
-    if item is None:
-        torb.refuse_unported_switches()
+# (switch, value, on) with the ids these cases have always had; `on` marks a
+# value the reference reads as set (RPE_BRIEF_QUANT's parse, any non-empty
+# RPE_NO_ATLAS or RPE_NO_FUSED_ATLAS)
+SWITCH_CASES = [
+    ("RPE_BRIEF_QUANT", "1", True, "RPE_BRIEF_QUANT-1-13"),
+    ("RPE_BRIEF_QUANT", "yes", True, "RPE_BRIEF_QUANT-yes-13"),
+    ("RPE_NO_ATLAS", "1", True, "RPE_NO_ATLAS-1-4"),
+    ("RPE_NO_ATLAS", "0", True, "RPE_NO_ATLAS-0-4"),
+    ("RPE_NO_FUSED_ATLAS", "1", True, "RPE_NO_FUSED_ATLAS-1-4"),
+    ("RPE_BRIEF_QUANT", "0", False, "RPE_BRIEF_QUANT-0-None"),
+    ("RPE_BRIEF_QUANT", "", False, "RPE_BRIEF_QUANT--None"),
+    ("RPE_NO_ATLAS", "", False, "RPE_NO_ATLAS--None"),
+]
+_SWITCH_REFS = {}
+
+
+@pytest.mark.parametrize("name,value,on", [c[:3] for c in SWITCH_CASES],
+                         ids=[c[3] for c in SWITCH_CASES])
+def test_unported_switches_raise(monkeypatch, frames, name, value, on):
+    """Each switch computes on the device="cpu" path what it computes in
+    the reference: ORB through the estimator's `detect_features` under a
+    value the reference reads as set equals the reference's ORB under it
+    (traced anew, so it reads the switch) -- keypoints equal, bits >=
+    0.999, angles within 1e-3 -- and an off value gives the default
+    output exactly."""
+    cfg = EstimatorConfig(orb=OrbConfig(**KW))
+    imgs = torch.from_numpy(frames[:1])
+    if not on:
+        default = detect_features(imgs, cfg)
+        monkeypatch.setenv(name, value)
+        got = detect_features(imgs, cfg)
+        for k in default:
+            assert torch.equal(got[k], default[k]), k
         return
-    frames, K, _ = make_sequence(2, H, W, seed=1)
-    keys = np.array([[0, 0]], np.uint32)
-    cfg = EstimatorConfig(orb=OrbConfig(nfeatures=256, nlevels=NLEV,
-                                        max_kpts=256))
-    with pytest.raises(NotImplementedError,
-                       match=f'{name}.*ROADMAP.md Queue 1, "Switches that '
-                       f'raise NotImplementedError today"$'):
-        estimate_sequence_batched(frames, K, keys, cfg, device="cpu")
+    monkeypatch.setenv(name, value)
+    got = {k: v[0].numpy() for k, v in detect_features(imgs, cfg).items()}
+    if name not in _SWITCH_REFS:
+        orb_j = jax.jit(lambda im: jorb.orb_detect_and_describe(im, **KW))
+        _SWITCH_REFS[name] = {k: np.asarray(v) for k, v in
+                              orb_j(jnp.asarray(frames[0])).items()}
+    ref = _SWITCH_REFS[name]
+    for k in ("xy", "level", "valid"):
+        np.testing.assert_array_equal(ref[k], got[k], err_msg=k)
+    v = ref["valid"]
+    assert v.sum() > 200
+    assert (ref["bits"][v] == got["bits"][v]).mean() >= 0.999
+    np.testing.assert_allclose(got["angle"][v], ref["angle"][v], atol=1e-3)

@@ -33,9 +33,11 @@ from rpe_tpu_torch.geometry import eig as teig
 from rpe_tpu_torch.geometry import epipolar as tepi
 from rpe_tpu_torch.geometry import homography as thom
 from rpe_tpu_torch.geometry import ransac as tran
-from rpe_tpu_torch.geometry import recover_pose as trp
 
+# both packages' geometry/__init__ export the function recover_pose under
+# the submodule's name, so the modules are taken from the import system
 jrp = importlib.import_module("rpe_tpu.geometry.recover_pose")
+trp = importlib.import_module("rpe_tpu_torch.geometry.recover_pose")
 DATA = Path(__file__).parent / "data"
 PAIRS = ((150, 165), (300, 315), (690, 705))
 

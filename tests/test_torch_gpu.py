@@ -29,6 +29,7 @@ from rpe_tpu_torch.ops.match import argmin_mismatches, \
     l2sq_distance_matrix, mutual_nn_hamming, mutual_nn_hamming_plain, \
     mutual_nn_l2, mutual_nn_l2_plain, near_tie_ok, row_top2, row_top2_plain
 from rpe_tpu_torch.ops.orb import atlas_keypoints
+from rpe_tpu_torch.ops.pyramid import build_pyramid
 from rpe_tpu_torch.pipeline.estimator import PoseEstimator, estimate_pair, \
     estimate_pairs_batched, estimate_sequence_batched
 from rpe_tpu_torch.utils.synthetic import float_descriptors, make_sequence, \
@@ -87,6 +88,12 @@ def _k1_input(cuda, scene, shape):
         return atlas_keypoints(torch.from_numpy(frames).to(cuda), o.nfeatures,
                                o.nlevels, o.scale_factor, o.fast_threshold,
                                o.max_kpts)["atlas"].contiguous()
+    if shape in ("level0", "level11"):
+        # the per-level path's (RPE_NO_ATLAS) inputs: pyramid levels of the
+        # 9 frames, 376x1241 and 132x435
+        frames, _, _ = make_sequence(9, 376, 1241, seed=0)
+        levels = build_pyramid(torch.from_numpy(frames).to(cuda), 12, 1.1)
+        return levels[int(shape[5:])].contiguous()
     f, h, w = shape
     g = np.random.default_rng(h * w)
     img = np.repeat(np.repeat(g.uniform(0, 255, (f, h // 2 + 1, w // 2 + 1)),
@@ -95,9 +102,10 @@ def _k1_input(cuda, scene, shape):
 
 
 @pytest.mark.parametrize("shape", ["scene", (2, 203, 517), (1, 9, 9),
-                                   "chunk"],
+                                   "chunk", "level0", "level11"],
                          ids=["scene", "ragged-203x517", "min-9x9",
-                              "chunk-9x3200x1280"])
+                              "chunk-9x3200x1280", "level0-9x376x1241",
+                              "level11-9x132x435"])
 def test_fast_harris_kernel_matches_plain(scene, cuda, shape):
     """K1 is bit-equal to its plain version 8 px and more from the edges,
     and over the whole image to the plain version with every stage
@@ -153,6 +161,35 @@ def test_extract_brief_kernel_matches_plain(scene, binned):
     torch.testing.assert_close(m10k, m10p, rtol=1e-4, atol=2.0)
     torch.testing.assert_close(m01k, m01p, rtol=1e-4, atol=2.0)
     assert not bk[~live].any() and not m10k[~live].any()
+
+
+BRIEF_MODES = [("cv2", True), ("gauss", True), ("cv2", False)]
+
+
+@pytest.mark.parametrize("kind,quant", BRIEF_MODES,
+                         ids=["cv2-quant", "gauss-quant", "cv2"])
+@pytest.mark.parametrize("binned", [False, True], ids=["k2", "k12_binned"])
+def test_extract_brief_kernel_modes_match_plain(scene, binned, kind, quant):
+    """K2 and K12 in the modes RPE_BRIEF and RPE_BRIEF_QUANT ask for (the
+    wide sample radius for OpenCV's pattern, rounded samples) against
+    their plain versions in the same mode: bits >= 0.999, moments within
+    rtol 1e-4, atol 2, parked slots zero; one launch; the mode's bits
+    differ from the default mode's."""
+    name = "extract_brief_binned" if binned else "extract_brief"
+    args, live = _slot_args(scene[3])
+    n0 = kernels.LAUNCHES[name]
+    bk, m10k, m01k = extract_brief(*args, binned=binned, quant=quant,
+                                   kind=kind)
+    bp, m10p, m01p = extract_brief_plain(*args, binned=binned, quant=quant,
+                                         kind=kind)
+    assert kernels.LAUNCHES[name] == n0 + 1
+    assert float((bk == bp)[live].float().mean()) >= 0.999
+    torch.testing.assert_close(m10k, m10p, rtol=1e-4, atol=2.0)
+    torch.testing.assert_close(m01k, m01p, rtol=1e-4, atol=2.0)
+    assert not bk[~live].any() and not m10k[~live].any()
+    default = extract_brief(*args, binned=binned, quant=False,
+                            kind="gauss")[0]
+    assert bool((bk != default)[live].any())
 
 
 def _edge_slots(cuda, f, seed=3, nb=8, cap=72):
@@ -595,6 +632,46 @@ def test_route_paths_launch_their_kernel_and_agree_with_cpu(
         "fast_harris", route, "match_hamming", "five_point_roots"}, \
         kernels.LAUNCHES
     cpu = estimate_sequence_batched(frames, K, keys, SMALL, device="cpu")
+    assert torch.equal(out["valid"].cpu(), cpu["valid"])
+    assert rotation_error_deg(out["R"].cpu().numpy(),
+                              cpu["R"].numpy()).max() <= 0.5
+    assert rotation_error_deg(out["R"].cpu().numpy(), R_gt[None]).max() < 2.0
+
+
+SWITCHES = {  # the reference's switches -> the kernels their path launches
+    "no_atlas": ({"RPE_NO_ATLAS": "1"}, {"fast_harris": SMALL.orb.nlevels,
+                                         "match_hamming": 1,
+                                         "five_point_roots": 1}),
+    "no_fused_atlas": ({"RPE_NO_FUSED_ATLAS": "1"}, None),
+    "cv2": ({"RPE_BRIEF": "cv2"}, None),
+    "cv2_v7": ({"RPE_BRIEF": "cv2", "RPE_EXTRACT_T_V7": "1"},
+               {"fast_harris": 1, "extract_brief_binned": 1,
+                "match_hamming": 1, "five_point_roots": 1}),
+    "quant": ({"RPE_BRIEF_QUANT": "1"}, None),
+    "lo": ({}, None),
+}
+
+
+@pytest.mark.parametrize("switch", list(SWITCHES))
+def test_switch_paths_launch_their_kernels_and_agree_with_cpu(
+        scene, cuda, monkeypatch, switch):
+    """Under each of the reference's switches (and RansacConfig(lo=True))
+    the ORB path launches exactly its kernels, each as often as stated
+    (the default ORB path's K1-K4 once each unless given), and agrees
+    with its CPU run."""
+    frames, K, R_gt, _ = scene
+    env, want = SWITCHES[switch]
+    want = want or {k: 1 for k in ORB_KERNELS | {"match_hamming"}}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg = SMALL if switch != "lo" else dataclasses.replace(
+        SMALL, ransac=dataclasses.replace(SMALL.ransac, lo=True))
+    keys = torch.stack([rng.PRNGKey(i) for i in range(2)])
+    kernels.reset_launches()
+    out = estimate_sequence_batched(frames, K, keys, cfg)
+    assert {k: n for k, n in kernels.LAUNCHES.items() if n} == want, \
+        kernels.LAUNCHES
+    cpu = estimate_sequence_batched(frames, K, keys, cfg, device="cpu")
     assert torch.equal(out["valid"].cpu(), cpu["valid"])
     assert rotation_error_deg(out["R"].cpu().numpy(),
                               cpu["R"].numpy()).max() <= 0.5

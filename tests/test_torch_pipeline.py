@@ -1,8 +1,9 @@
 """The rpe_tpu_torch ORB path end to end against rpe_tpu on the CPU: the
 back half (_match_to_pose) fed the reference's own detections through
 rpe_tpu_torch/convert.py, with Hamming cross-check and the Hamming Lowe
-ratio test, and the whole sequence path at a small size; plus the port's
-entry-point rules (device policy, failures, unported options). The SIFT
+ratio test, and the whole sequence path at a small size, also with
+LO-RANSAC and OpenCV's BRIEF pattern; plus the port's entry-point rules
+(device policy, failures, options). The SIFT
 paths are held in tests/test_torch_sift.py."""
 
 import dataclasses
@@ -182,12 +183,18 @@ def test_vp_estimator_without_R_prev_is_the_plain_pose(scene):
 
 @pytest.mark.parametrize("change", ["orb_l2", "lo", "vp", "cv2_brief"])
 def test_unported_options_raise(monkeypatch, scene, change):
+    """The options beside the default path: ORB with L2 matching refuses
+    with a clear error; VP refinement runs its gated refinement
+    (tests/test_torch_vp.py holds it to the reference); LO-RANSAC
+    (RansacConfig(lo=True)) holds the sequence slice to the reference
+    (`_hold_sequence_slice`); under OpenCV's BRIEF pattern (RPE_BRIEF=cv2,
+    rounding on by default; the reference traced anew, so it reads the
+    pattern) the detections and matches are the reference's bit for bit,
+    `valid` equal and the pose of the pair the 5-point roots do not
+    decide within 0.5 deg."""
     frames, K, _, keys = scene
-    _, tc = _cfgs()
+    jc, tc = _cfgs()
     if change == "vp":
-        # VP refinement is ported (tests/test_torch_vp.py holds it to the
-        # reference): with R_prev the call runs the gated refinement, and
-        # where the gates hold it back the plain pose comes back
         est = test_.PoseEstimator(K, use_vp_refinement=True, device="cpu")
         got = est.estimate_with_debug(frames[0], frames[1], R_prev=np.eye(3))
         assert {"prev_frame", "new_frame", "reliability"} <= \
@@ -205,15 +212,49 @@ def test_unported_options_raise(monkeypatch, scene, change):
             test_.estimate_sequence_batched(frames, K, keys, cfg,
                                             device="cpu")
         return
-    if change == "cv2_brief":
-        monkeypatch.setenv("RPE_BRIEF", "cv2")
-    cfg = {
-        "lo": dataclasses.replace(tc, ransac=dataclasses.replace(
-            tc.ransac, lo=True)),
-        "cv2_brief": tc,
-    }[change]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        test_.estimate_sequence_batched(frames, K, keys, cfg, device="cpu")
+    if change == "lo":
+        jc = dataclasses.replace(jc, ransac=dataclasses.replace(
+            jc.ransac, lo=True))
+        tc = dataclasses.replace(tc, ransac=dataclasses.replace(
+            tc.ransac, lo=True))
+        _hold_sequence_slice(scene, jc, tc)
+        return
+    # RPE_BRIEF=cv2: detections and matches bit for bit, and the sequence
+    # slice's `valid` and pair 1's pose (<= 0.5 deg). Pair 0 draws a match
+    # twice in 5 of its 64 minimal samples, and the unconverged 5-point
+    # roots there decide its winner in either package (ROADMAP Known
+    # divergences; scripts/degensac_handover.py on this pair: handed the
+    # reference's 5-point output, the port ends on its E within 4.2e-8)
+    monkeypatch.setenv("RPE_BRIEF", "cv2")
+    jax.clear_caches()
+    try:
+        dets_j = {k: np.asarray(v) for k, v in jax.jit(
+            lambda ims: jax.lax.map(lambda im: jest.detect_features(im, jc),
+                                    ims))(jnp.asarray(frames)).items()}
+        dets = test_.detect_features(torch.from_numpy(frames), tc)
+        for k in ("xy", "valid", "bits"):
+            np.testing.assert_array_equal(dets[k].numpy(), dets_j[k],
+                                          err_msg=k)
+        m_j = jax.jit(jax.vmap(lambda d1, d2: jest.match_features(d1, d2,
+                                                                  jc)))(
+            {k: v[:-1] for k, v in dets_j.items()},
+            {k: v[1:] for k, v in dets_j.items()})
+        m = test_.match_features({k: v[:-1] for k, v in dets.items()},
+                                 {k: v[1:] for k, v in dets.items()}, tc)
+        for k in ("idx1", "idx2", "valid"):
+            np.testing.assert_array_equal(m[k].numpy(), np.asarray(m_j[k]),
+                                          err_msg=k)
+        ref = jest.estimate_sequence_batched(
+            jnp.asarray(frames), jnp.asarray(K), jnp.asarray(keys), cfg=jc)
+        got = test_.estimate_sequence_batched(frames, K, keys, tc,
+                                              device="cpu")
+        np.testing.assert_array_equal(got["valid"].numpy(),
+                                      np.asarray(ref["valid"]))
+        assert got["valid"].all()
+        assert rotation_error_deg(got["R"][1].numpy(),
+                                  np.asarray(ref["R"])[1]) < 0.5
+    finally:
+        jax.clear_caches()
 
 
 @pytest.mark.parametrize("case", ["no_card", "alone"])

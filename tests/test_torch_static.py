@@ -177,12 +177,13 @@ def test_port_imports_neither_jax_nor_reference():
     subpackages = {f.relative_to(ROOT / "rpe_tpu_torch").parts[0]
                    for f in files[:-1]}
     assert {"io", "cli", "pipeline", "geometry", "ops", "utils",
-            "viz"} <= subpackages
+            "viz", "tools"} <= subpackages
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {f"rpe_tpu_torch/{m}.py" for m in (
         "ops/lsd", "geometry/vp_refine", "pipeline/orchestrator",
         "viz/visualizer", "cli/run_simulator_data", "cli/run_phone_data",
-        "cli/run_vo_database_salah", "cli/run_single_pair")} <= names
+        "cli/run_vo_database_salah", "cli/run_single_pair",
+        "tools/calibrate", "ops/brief_cv2_pattern")} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -225,3 +226,38 @@ def test_port_keeps_its_own_decoder_and_no_path_into_the_reference():
             for line in f.read_text().splitlines():
                 if line.lstrip().startswith("#include"):
                     assert "rpe_tpu" not in line, (f, line)
+
+
+@pytest.mark.parametrize("sub", ["ops", "geometry", "pipeline", "utils"])
+def test_subpackages_export_the_reference_names(sub):
+    """Each subpackage's `__all__` is the reference's, every name bound;
+    the reference's fused matchers name the port's kernel-backed ones."""
+    import importlib
+
+    ref = importlib.import_module(f"rpe_tpu.{sub}")
+    port = importlib.import_module(f"rpe_tpu_torch.{sub}")
+    assert port.__all__ == ref.__all__
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
+    if sub == "ops":
+        from rpe_tpu_torch.ops import match
+
+        assert port.cross_check_match_fused is match.match_hamming
+        assert port.ratio_match_fused is match.match_ratio
+
+
+def test_calibration_tool_imports_neither_jax_nor_reference():
+    """tools/calibrate.py takes `_so3_exp_np` from the port's vp_refine and
+    imports cv2 only inside `main`."""
+    path = ROOT / "rpe_tpu_torch" / "tools" / "calibrate.py"
+    mods = set(_imports(path))
+    assert not {m for m in mods if m.split(".")[0] in (
+        "jax", "jaxlib", "rpe_tpu")}, mods
+    tree = ast.parse(path.read_text())
+    top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                  ast.ImportFrom))]
+    assert not any(a.name == "cv2" for n in top if isinstance(n, ast.Import)
+                   for a in n.names)
+    assert any(isinstance(n, ast.ImportFrom) and n.level == 2
+               and n.module == "geometry.vp_refine"
+               and n.names[0].name == "_so3_exp_np" for n in top)
