@@ -92,7 +92,27 @@ Phases (any failure exits non-zero before the final line):
      rad); the labeling of
      one block of 8 frames, the host segments and voting, and the device
      twin per block (CUDA events or the host clock after a synchronise),
-     the labeling's device launches (torch.profiler), and pairs/s with VP.
+     the labeling's device launches (torch.profiler), and pairs/s with VP;
+  7. multi-device (rpe_tpu_torch/parallel) on meshes of the one card,
+     each against the same work without a mesh: (a) the KITTI runner of
+     phase 5 with `--devices 1` (`make_mesh(1)`): K1-K4 once per chunk,
+     per-pair R within 1e-5 of phase 5's, `valid` equal, the same ATE;
+     (b) `BatchProcessor` on phase 5's PNGs with the card listed twice
+     ([cuda:0, cuda:0]): K1-K4 once per shard per chunk, `valid` equal and
+     R within 1e-5 of its run without a mesh at the shard's 8 pairs a call,
+     against chunk 16 `valid` equal and no pair further than chunk 8
+     without a mesh is from it (a batched product's kernel on the card
+     depends on the batch size), pairs/s of each beside phase 5's; (c)
+     `estimate_sequence_sharded` on that mesh over phase 4's 9 frames
+     equal to `estimate_sequence_batched` (R within 1e-5, t 1e-4);
+     (d) `estimate_pairs_2d` on a (1, 2) mesh of the card for phase 4's 8
+     pairs (detection and matching once, K4 once per hyp shard): `valid`
+     equal to `estimate_pair`'s and R within 1 deg, pairs 0-1 also on a
+     (1, 2) CPU mesh (equal `valid`, <= 0.5 deg); (e)
+     `sharded_error_stats` over a one-process NCCL group started by
+     `initialize_distributed` on a loopback address, on the card's global
+     mesh and on [cuda:0, cuda:0], equal to numpy's statistics; the group
+     is destroyed after.
 The line before the last is the kernel JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -104,6 +124,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -921,12 +942,20 @@ def main() -> None:
     # design) on seeded synthetic chessboard views, two of them corrupted
     summary["calibration"] = _calibration_line(np, check)
 
-    # ---- 5. sequence runner -----------------------------------------------------
-    summary["sequence runner"] = _runner_phase(torch, np, card, check)
+    with tempfile.TemporaryDirectory() as seq_dir:
+        # ---- 5. sequence runner ---------------------------------------------
+        phase5 = {}
+        summary["sequence runner"] = _runner_phase(
+            torch, np, card, check, Path(seq_dir), phase5)
 
-    # ---- 6. VP refinement and the dataset runners -------------------------------
-    summary["vp runners"] = _vp_phase(torch, np, card, check,
-                                      summary["sequence runner"])
+        # ---- 6. VP refinement and the dataset runners -----------------------
+        summary["vp runners"] = _vp_phase(torch, np, card, check,
+                                          summary["sequence runner"])
+
+        # ---- 7. multi-device: meshes on the one card ------------------------
+        summary["multi-device"] = _mesh_phase(
+            torch, np, card, check, Path(seq_dir), phase5,
+            summary["sequence runner"], (frames, K, keys_np, cfg))
 
     if "--profile" in sys.argv:
         _profile_main_path(torch, np, estimate_sequence_batched,
@@ -1008,16 +1037,33 @@ def _overlap_ms(spans, a, b):
                       if e > a and s < b])
 
 
-def _runner_phase(torch, np, card, check):
-    """Phase 5 (module docstring): the KITTI sequence runner from PNGs on
-    disk. Returns the numbers it printed."""
+def _run_runner(argv, device=None, tag="[runner]"):
+    """`run_kitti_sequence.main(argv)` with its output echoed under `tag`;
+    returns (summary, printed text)."""
+    import io
+
+    from rpe_tpu_torch.cli import run_kitti_sequence as runner
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = runner.main(argv, device=device)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if line.strip():
+            say(f"{tag} | {line}")
+    return out, text
+
+
+def _runner_phase(torch, np, card, check, tmp, keep):
+    """Phase 5 (module docstring): the KITTI sequence runner from PNGs
+    written under `tmp`. Returns the numbers it printed; `keep` receives
+    what phase 7 reuses (the runner's arguments, K, the per-pair rotations
+    and `valid`, the summary)."""
     import io
     import re
-    import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
-    from rpe_tpu_torch.cli import run_kitti_sequence as runner
     from rpe_tpu_torch.config import EstimatorConfig, MatcherConfig, \
         OrbConfig, RansacConfig
     from rpe_tpu_torch.io import image_loader
@@ -1035,247 +1081,237 @@ def _runner_phase(torch, np, card, check):
                  "five_point_roots")
     res = {}
 
-    def run(argv, device=None):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            out = runner.main(argv, device=device)
-        text = buf.getvalue()
-        for line in text.splitlines():
-            if line.strip():
-                say(f"[runner] | {line}")
-        return out, text
+    t0 = time.perf_counter()
+    frames, K, (R_gt, t_gt) = make_sequence(
+        SEQ_FRAMES, H, W, seed=0, step=SEQ_STEP, rot_deg=SEQ_ROT_DEG)
+    images, poses, calib = write_kitti_sequence(tmp, frames, K, R_gt,
+                                                t_gt)
+    say(f"[runner] wrote {SEQ_FRAMES} frames of {W}x{H} as PNGs, "
+        f"poses.txt and calib.txt in {time.perf_counter() - t0:.1f} s")
+    base = ["--images-dir", str(images), "--poses", str(poses),
+            "--calib", str(calib), "--chunk", str(SEQ_CHUNK)]
 
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        t0 = time.perf_counter()
-        frames, K, (R_gt, t_gt) = make_sequence(
-            SEQ_FRAMES, H, W, seed=0, step=SEQ_STEP, rot_deg=SEQ_ROT_DEG)
-        images, poses, calib = write_kitti_sequence(tmp, frames, K, R_gt,
-                                                    t_gt)
-        say(f"[runner] wrote {SEQ_FRAMES} frames of {W}x{H} as PNGs, "
-            f"poses.txt and calib.txt in {time.perf_counter() - t0:.1f} s")
-        base = ["--images-dir", str(images), "--poses", str(poses),
-                "--calib", str(calib), "--chunk", str(SEQ_CHUNK)]
+    # the runner on the card, with a checkpoint
+    ckpt = tmp / "card.jsonl"
+    torch.cuda.synchronize()
+    image_loader.reset_decodes()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out, text = _run_runner(base + ["--checkpoint", str(ckpt),
+                                    "--results-dir", str(tmp / "card")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    decodes = dict(image_loader.DECODES)
+    want = {k: n_chunks for k in main_path}
+    check("[runner] launches", launches == want,
+          f"{launches} (want K1-K4 once per chunk of {SEQ_CHUNK} pairs, "
+          f"{want}, and no other kernel)")
+    check("[runner] native decodes",
+          decodes == {"native": SEQ_FRAMES, "pil": 0},
+          f"{decodes} (want all {SEQ_FRAMES} frames by the native "
+          f"decoder)")
+    R_est, valid = _pair_rotations(np, _ckpt_records(ckpt), n_pairs)
+    check("[runner] every pair valid",
+          out["n_pairs_valid"] == n_pairs and all(valid),
+          f"{out['n_pairs_valid']} of {n_pairs} valid")
+    rot = rotation_error_deg(R_est, R_gt[None])
+    check("[runner] rotation vs the scene", rot.max() < SEQ_ROT_GT_DEG,
+          f"max {rot.max():.4f} deg, mean {rot.mean():.4f} (< "
+          f"{SEQ_ROT_GT_DEG})")
+    ate, rpe_t, rpe_r = (out["ate_sim3"]["rmse"], out["rpe_trans"]["rmse"],
+                         out["rpe_rot_deg"]["rmse"])
+    check("[runner] ATE/RPE vs poses.txt",
+          ate < SEQ_ATE_SIM3 and rpe_t < SEQ_RPE_TRANS
+          and rpe_r < SEQ_RPE_ROT_DEG,
+          f"ATE sim3 RMSE {ate:.4f} (< {SEQ_ATE_SIM3}), se3 "
+          f"{out['ate_se3']['rmse']:.4f}; RPE trans RMSE {rpe_t:.4f} (< "
+          f"{SEQ_RPE_TRANS}), rot RMSE {rpe_r:.4f} deg (< "
+          f"{SEQ_RPE_ROT_DEG}); in steps of one frame")
+    m = re.search(r"Throughput: ([\d.]+) pairs/sec/chip", text)
+    stages = {k: (float(ms), int(n)) for k, ms, n in re.findall(
+        r"stage (\w+): ([\d.]+) ms x (\d+)", text)}
+    pps = float(m.group(1)) if m else float("nan")
+    check("[runner] throughput line", m is not None,
+          "the runner printed its ThroughputMeter line")
+    say(f"[runner] throughput (ThroughputMeter, first decode to last "
+        f"flush): {pps} pairs/s over {n_pairs} pairs at chunk "
+        f"{SEQ_CHUNK}, {W}x{H}; whole runner {wall:.3f} s ({card})")
+    say(f"[runner] stages, mean ms x count: {stages} ({card})")
+    res.update(pairs_per_s=pps, runner_s=wall, stages_ms=stages, launches=launches,
+               rot_err_gt_deg=[float(x) for x in rot],
+               ate_sim3=ate, ate_se3=out["ate_se3"]["rmse"],
+               rpe_trans=rpe_t, rpe_rot_deg=rpe_r)
+    keep.update(base=base, K=K, R=R_est, valid=valid, out=out,
+                images=images, R_gt=R_gt)
 
-        # the runner on the card, with a checkpoint
-        ckpt = tmp / "card.jsonl"
-        torch.cuda.synchronize()
-        image_loader.reset_decodes()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        out, text = run(base + ["--checkpoint", str(ckpt),
-                                "--results-dir", str(tmp / "card")])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
-        decodes = dict(image_loader.DECODES)
-        want = {k: n_chunks for k in main_path}
-        check("[runner] launches", launches == want,
-              f"{launches} (want K1-K4 once per chunk of {SEQ_CHUNK} pairs, "
-              f"{want}, and no other kernel)")
-        check("[runner] native decodes",
-              decodes == {"native": SEQ_FRAMES, "pil": 0},
-              f"{decodes} (want all {SEQ_FRAMES} frames by the native "
-              f"decoder)")
-        R_est, valid = _pair_rotations(np, _ckpt_records(ckpt), n_pairs)
-        check("[runner] every pair valid",
-              out["n_pairs_valid"] == n_pairs and all(valid),
-              f"{out['n_pairs_valid']} of {n_pairs} valid")
-        rot = rotation_error_deg(R_est, R_gt[None])
-        check("[runner] rotation vs the scene", rot.max() < SEQ_ROT_GT_DEG,
-              f"max {rot.max():.4f} deg, mean {rot.mean():.4f} (< "
-              f"{SEQ_ROT_GT_DEG})")
-        ate, rpe_t, rpe_r = (out["ate_sim3"]["rmse"], out["rpe_trans"]["rmse"],
-                             out["rpe_rot_deg"]["rmse"])
-        check("[runner] ATE/RPE vs poses.txt",
-              ate < SEQ_ATE_SIM3 and rpe_t < SEQ_RPE_TRANS
-              and rpe_r < SEQ_RPE_ROT_DEG,
-              f"ATE sim3 RMSE {ate:.4f} (< {SEQ_ATE_SIM3}), se3 "
-              f"{out['ate_se3']['rmse']:.4f}; RPE trans RMSE {rpe_t:.4f} (< "
-              f"{SEQ_RPE_TRANS}), rot RMSE {rpe_r:.4f} deg (< "
-              f"{SEQ_RPE_ROT_DEG}); in steps of one frame")
-        m = re.search(r"Throughput: ([\d.]+) pairs/sec/chip", text)
-        stages = {k: (float(ms), int(n)) for k, ms, n in re.findall(
-            r"stage (\w+): ([\d.]+) ms x (\d+)", text)}
-        pps = float(m.group(1)) if m else float("nan")
-        check("[runner] throughput line", m is not None,
-              "the runner printed its ThroughputMeter line")
-        say(f"[runner] throughput (ThroughputMeter, first decode to last "
-            f"flush): {pps} pairs/s over {n_pairs} pairs at chunk "
-            f"{SEQ_CHUNK}, {W}x{H}; whole runner {wall:.3f} s ({card})")
-        say(f"[runner] stages, mean ms x count: {stages} ({card})")
-        res.update(pairs_per_s=pps, runner_s=wall, stages_ms=stages, launches=launches,
-                   rot_err_gt_deg=[float(x) for x in rot],
-                   ate_sim3=ate, ate_se3=out["ate_se3"]["rmse"],
-                   rpe_trans=rpe_t, rpe_rot_deg=rpe_r)
+    # the same runner with device="cpu" on frames 0-3
+    t0 = time.perf_counter()
+    cout, _ = _run_runner(base + ["--max-frames", "4", "--checkpoint",
+                                  str(tmp / "cpu.jsonl"), "--results-dir",
+                                  str(tmp / "cpu")], device="cpu")
+    R_cpu, v_cpu = _pair_rotations(np, _ckpt_records(tmp / "cpu.jsonl"),
+                                   3)
+    d_rot = rotation_error_deg(R_est[:3], R_cpu)
+    check("[runner] CUDA vs CPU (frames 0-3)",
+          v_cpu == valid[:3] and bool((d_rot <= 0.5).all()),
+          f"valid cuda {valid[:3]} cpu {v_cpu}, rotation difference "
+          f"(deg) {[float(x) for x in d_rot]} (<= 0.5); CPU run "
+          f"{time.perf_counter() - t0:.1f} s")
 
-        # the same runner with device="cpu" on frames 0-3
-        t0 = time.perf_counter()
-        cout, _ = run(base + ["--max-frames", "4", "--checkpoint",
-                              str(tmp / "cpu.jsonl"), "--results-dir",
-                              str(tmp / "cpu")], device="cpu")
-        R_cpu, v_cpu = _pair_rotations(np, _ckpt_records(tmp / "cpu.jsonl"),
-                                       3)
-        d_rot = rotation_error_deg(R_est[:3], R_cpu)
-        check("[runner] CUDA vs CPU (frames 0-3)",
-              v_cpu == valid[:3] and bool((d_rot <= 0.5).all()),
-              f"valid cuda {valid[:3]} cpu {v_cpu}, rotation difference "
-              f"(deg) {[float(x) for x in d_rot]} (<= 0.5); CPU run "
-              f"{time.perf_counter() - t0:.1f} s")
+    # resume from the checkpoint: nothing launched, identical outputs
+    kernels.reset_launches()
+    rout, rtext = _run_runner(base + ["--checkpoint", str(ckpt),
+                                      "--results-dir", str(tmp / "resume")])
+    torch.cuda.synchronize()
+    ran = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    same = all((tmp / "card" / f).read_bytes()
+               == (tmp / "resume" / f).read_bytes()
+               for f in ("est_poses_kitti.txt",
+                         "trajectory_summary.json"))
+    check("[runner] resume", not ran and rout == out and same
+          and f"Resumed {n_pairs} pairs" in rtext,
+          f"launches {ran} (want none), outputs identical={same}, "
+          f"summary equal={rout == out}")
 
-        # resume from the checkpoint: nothing launched, identical outputs
-        kernels.reset_launches()
-        rout, rtext = run(base + ["--checkpoint", str(ckpt),
-                                  "--results-dir", str(tmp / "resume")])
-        torch.cuda.synchronize()
-        ran = {k: n for k, n in kernels.LAUNCHES.items() if n}
-        same = all((tmp / "card" / f).read_bytes()
-                   == (tmp / "resume" / f).read_bytes()
-                   for f in ("est_poses_kitti.txt",
-                             "trajectory_summary.json"))
-        check("[runner] resume", not ran and rout == out and same
-              and f"Resumed {n_pairs} pairs" in rtext,
-              f"launches {ran} (want none), outputs identical={same}, "
-              f"summary equal={rout == out}")
+    # the inlier-collapse fallback on the card (tests/test_fallback.py)
+    weak = EstimatorConfig(
+        orb=OrbConfig(nfeatures=128, nlevels=2, max_kpts=128, band=8,
+                      extract_cap=8),
+        matcher=MatcherConfig(max_matches=64),
+        ransac=RansacConfig(num_hypotheses=64),
+        fallback_profile="orb512", fallback_min_inliers=10 ** 5)
+    paths = sorted(images.glob("*.png"))
+    proc = BatchProcessor(
+        images, PoseEstimator(K, nfeatures=128, max_matches=64,
+                              config=weak),
+        None, chunk=SEQ_CHUNK, checkpoint_path=tmp / "fallback.jsonl")
+    kernels.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        proc.estimate_relative_poses(list(range(SEQ_FRAMES)),
+                                     LazyFrameSource(paths))
+    torch.cuda.synchronize()
+    ftext = buf.getvalue()
+    fl = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    n_fb = -(-n_pairs // FALLBACK_BATCH)
+    want_fb = {k: n_chunks + n_fb for k in main_path}
+    recs = _ckpt_records(tmp / "fallback.jsonl")
+    first = {r["pair"]: r for r in recs[:n_pairs]}
+    final = {r["pair"]: r for r in recs[n_pairs:]}
+    adopted = [i for i in final if final[i] != first[i]]
+    healthier = all(final[i]["valid"] and final[i]["num_inliers"]
+                    > first[i]["num_inliers"] for i in adopted)
+    check("[runner] fallback on the card",
+          f"Fallback: re-running {n_pairs} collapsed pair(s) at profile "
+          f"orb512" in ftext and fl == want_fb and len(adopted) > 0
+          and healthier,
+          f"launches {fl} (want {want_fb}: {n_chunks} chunks, then "
+          f"{n_fb} orb512 batches of {FALLBACK_BATCH} pairs), "
+          f"{len(adopted)} of {n_pairs} pairs adopted, each with more "
+          f"inliers={healthier}; inliers before "
+          f"{[first[i]['num_inliers'] for i in sorted(first)]} after "
+          f"{[final[i]['num_inliers'] for i in sorted(final)]}")
 
-        # the inlier-collapse fallback on the card (tests/test_fallback.py)
-        weak = EstimatorConfig(
-            orb=OrbConfig(nfeatures=128, nlevels=2, max_kpts=128, band=8,
-                          extract_cap=8),
-            matcher=MatcherConfig(max_matches=64),
-            ransac=RansacConfig(num_hypotheses=64),
-            fallback_profile="orb512", fallback_min_inliers=10 ** 5)
-        paths = sorted(images.glob("*.png"))
-        proc = BatchProcessor(
-            images, PoseEstimator(K, nfeatures=128, max_matches=64,
-                                  config=weak),
-            None, chunk=SEQ_CHUNK, checkpoint_path=tmp / "fallback.jsonl")
-        kernels.reset_launches()
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
+    # when did the card finish each chunk, against the host's decode of
+    # the next? An event recorded after each dispatch, on the host's
+    # clock through an event taken on the idle card; no profiler.
+    import rpe_tpu_torch.pipeline.batch as batch_mod
+
+    done, decodes_at = [], []
+
+    class TimedSource(LazyFrameSource):
+        def get(self, indices):
+            a = time.perf_counter()
+            out = super().get(indices)
+            decodes_at.append((a, time.perf_counter()))
+            return out
+
+    def timed(*a, **k):
+        out = dispatch(*a, **k)
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        done.append((e, time.perf_counter()))
+        return out
+
+    proc = BatchProcessor(images, PoseEstimator(K), None,
+                          chunk=SEQ_CHUNK)
+    dispatch = batch_mod.estimate_sequence_batched
+    e0 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    batch_mod.estimate_sequence_batched = timed
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            proc.estimate_relative_poses(list(range(SEQ_FRAMES)),
+                                         TimedSource(paths))
+    finally:
+        batch_mod.estimate_sequence_batched = dispatch
+    torch.cuda.synchronize()
+    overlap = []
+    for c, (e, returned) in enumerate(done[:-1]):
+        finished = h0 + e0.elapsed_time(e) / 1e3
+        a, b = decodes_at[c + 1]
+        o = dict(chunk=c, dispatch_returned_ms=(returned - h0) * 1e3,
+                 card_finished_ms=(finished - h0) * 1e3,
+                 next_decode_ms=[(a - h0) * 1e3, (b - h0) * 1e3],
+                 hidden_ms=max(0.0, min(finished, b) - a) * 1e3)
+        overlap.append(o)
+        say(f"[runner] chunk {c}: dispatch returned at "
+            f"{o['dispatch_returned_ms']:.3f} ms, the card finished it at "
+            f"{o['card_finished_ms']:.3f} ms; decode of chunk {c + 1} "
+            f"{o['next_decode_ms'][0]:.3f}-{o['next_decode_ms'][1]:.3f} "
+            f"ms, {o['hidden_ms']:.3f} ms of it beside the card's work "
+            f"(ms from the loop's start; {card})")
+    res["overlap"] = overlap
+
+    # one trace of the pair loop: the card's busy share
+    proc = BatchProcessor(images, PoseEstimator(K), None,
+                          chunk=SEQ_CHUNK)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with contextlib.redirect_stdout(io.StringIO()):
             proc.estimate_relative_poses(list(range(SEQ_FRAMES)),
                                          LazyFrameSource(paths))
         torch.cuda.synchronize()
-        ftext = buf.getvalue()
-        fl = {k: n for k, n in kernels.LAUNCHES.items() if n}
-        n_fb = -(-n_pairs // FALLBACK_BATCH)
-        want_fb = {k: n_chunks + n_fb for k in main_path}
-        recs = _ckpt_records(tmp / "fallback.jsonl")
-        first = {r["pair"]: r for r in recs[:n_pairs]}
-        final = {r["pair"]: r for r in recs[n_pairs:]}
-        adopted = [i for i in final if final[i] != first[i]]
-        healthier = all(final[i]["valid"] and final[i]["num_inliers"]
-                        > first[i]["num_inliers"] for i in adopted)
-        check("[runner] fallback on the card",
-              f"Fallback: re-running {n_pairs} collapsed pair(s) at profile "
-              f"orb512" in ftext and fl == want_fb and len(adopted) > 0
-              and healthier,
-              f"launches {fl} (want {want_fb}: {n_chunks} chunks, then "
-              f"{n_fb} orb512 batches of {FALLBACK_BATCH} pairs), "
-              f"{len(adopted)} of {n_pairs} pairs adopted, each with more "
-              f"inliers={healthier}; inliers before "
-              f"{[first[i]['num_inliers'] for i in sorted(first)]} after "
-              f"{[final[i]['num_inliers'] for i in sorted(final)]}")
+    evs = prof.events()
 
-        # when did the card finish each chunk, against the host's decode of
-        # the next? An event recorded after each dispatch, on the host's
-        # clock through an event taken on the idle card; no profiler.
-        import rpe_tpu_torch.pipeline.batch as batch_mod
+    def on_card(e):
+        return str(getattr(e, "device_type", "")).endswith("CUDA")
 
-        done, decodes_at = [], []
-
-        class TimedSource(LazyFrameSource):
-            def get(self, indices):
-                a = time.perf_counter()
-                out = super().get(indices)
-                decodes_at.append((a, time.perf_counter()))
-                return out
-
-        def timed(*a, **k):
-            out = dispatch(*a, **k)
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            done.append((e, time.perf_counter()))
-            return out
-
-        proc = BatchProcessor(images, PoseEstimator(K), None,
-                              chunk=SEQ_CHUNK)
-        dispatch = batch_mod.estimate_sequence_batched
-        e0 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        torch.cuda.synchronize()
-        h0 = time.perf_counter()
-        batch_mod.estimate_sequence_batched = timed
-        try:
-            with contextlib.redirect_stdout(io.StringIO()):
-                proc.estimate_relative_poses(list(range(SEQ_FRAMES)),
-                                             TimedSource(paths))
-        finally:
-            batch_mod.estimate_sequence_batched = dispatch
-        torch.cuda.synchronize()
-        overlap = []
-        for c, (e, returned) in enumerate(done[:-1]):
-            finished = h0 + e0.elapsed_time(e) / 1e3
-            a, b = decodes_at[c + 1]
-            o = dict(chunk=c, dispatch_returned_ms=(returned - h0) * 1e3,
-                     card_finished_ms=(finished - h0) * 1e3,
-                     next_decode_ms=[(a - h0) * 1e3, (b - h0) * 1e3],
-                     hidden_ms=max(0.0, min(finished, b) - a) * 1e3)
-            overlap.append(o)
-            say(f"[runner] chunk {c}: dispatch returned at "
-                f"{o['dispatch_returned_ms']:.3f} ms, the card finished it at "
-                f"{o['card_finished_ms']:.3f} ms; decode of chunk {c + 1} "
-                f"{o['next_decode_ms'][0]:.3f}-{o['next_decode_ms'][1]:.3f} "
-                f"ms, {o['hidden_ms']:.3f} ms of it beside the card's work "
-                f"(ms from the loop's start; {card})")
-        res["overlap"] = overlap
-
-        # one trace of the pair loop: the card's busy share
-        proc = BatchProcessor(images, PoseEstimator(K), None,
-                              chunk=SEQ_CHUNK)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            with contextlib.redirect_stdout(io.StringIO()):
-                proc.estimate_relative_poses(list(range(SEQ_FRAMES)),
-                                             LazyFrameSource(paths))
-            torch.cuda.synchronize()
-        evs = prof.events()
-
-        def on_card(e):
-            return str(getattr(e, "device_type", "")).endswith("CUDA")
-
-        # device work only: the stage ranges (StageTimer's record_function)
-        # also show on the device's timeline, spanning the work they launch
-        stages = ("decode", "stage", "dispatch", "flush")
-        dev_spans = [(e.time_range.start, e.time_range.end) for e in evs
-                     if on_card(e) and e.name not in stages]
-        host = [(e.time_range.start, e.time_range.end) for e in evs
-                if e.name in stages and not on_card(e)]
-        loop = (min(a for a, _ in host), max(b for _, b in host))
-        busy = _overlap_ms(dev_spans, *loop)
-        loop_ms = (loop[1] - loop[0]) / 1e3
-        say(f"[runner] trace: pair loop {loop_ms:.1f} ms (profiled), device "
-            f"busy {busy:.1f} ms of it ({100 * busy / loop_ms:.1f}%), "
-            f"{len(dev_spans)} device events ({card})")
-        # host calls that wait for the card (a copy from pageable host
-        # memory waits for the stream before it starts), and the device
-        # time by kernel
-        waits = {}
-        for e in evs:
-            if e.name.startswith(("cudaStreamSynchronize",
-                                  "cudaDeviceSynchronize", "cudaMemcpy",
-                                  "cudaEventSynchronize")):
-                waits[e.name] = waits.get(e.name, 0) + 1
-        say(f"[runner] trace: host runtime calls that can wait for the card: "
-            f"{waits}")
-        table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                          row_limit=20)
-        (OUT_DIR / "profile_runner.txt").write_text(table)
-        for line in table.splitlines()[:14]:
-            say(f"[runner] profile| {line}")
-        res.update(trace_loop_ms=loop_ms, trace_device_busy_ms=busy,
-                   trace_waits=waits)
+    # device work only: the stage ranges (StageTimer's record_function)
+    # also show on the device's timeline, spanning the work they launch
+    stages = ("decode", "stage", "dispatch", "flush")
+    dev_spans = [(e.time_range.start, e.time_range.end) for e in evs
+                 if on_card(e) and e.name not in stages]
+    host = [(e.time_range.start, e.time_range.end) for e in evs
+            if e.name in stages and not on_card(e)]
+    loop = (min(a for a, _ in host), max(b for _, b in host))
+    busy = _overlap_ms(dev_spans, *loop)
+    loop_ms = (loop[1] - loop[0]) / 1e3
+    say(f"[runner] trace: pair loop {loop_ms:.1f} ms (profiled), device "
+        f"busy {busy:.1f} ms of it ({100 * busy / loop_ms:.1f}%), "
+        f"{len(dev_spans)} device events ({card})")
+    # host calls that wait for the card (a copy from pageable host
+    # memory waits for the stream before it starts), and the device
+    # time by kernel
+    waits = {}
+    for e in evs:
+        if e.name.startswith(("cudaStreamSynchronize",
+                              "cudaDeviceSynchronize", "cudaMemcpy",
+                              "cudaEventSynchronize")):
+            waits[e.name] = waits.get(e.name, 0) + 1
+    say(f"[runner] trace: host runtime calls that can wait for the card: "
+        f"{waits}")
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=20)
+    (OUT_DIR / "profile_runner.txt").write_text(table)
+    for line in table.splitlines()[:14]:
+        say(f"[runner] profile| {line}")
+    res.update(trace_loop_ms=loop_ms, trace_device_busy_ms=busy,
+               trace_waits=waits)
     res["phase_s"] = time.perf_counter() - t_phase
     say(f"[runner] phase: {res['phase_s']:.1f} s")
     return res
@@ -1286,7 +1322,6 @@ def _vp_phase(torch, np, card, check, phase5):
     runner, both twins, the CPU cross-check, the single-pair entry points
     and the VP stage's times. Returns the numbers it printed."""
     import io
-    import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -1586,6 +1621,220 @@ def _vp_phase(torch, np, card, check, phase5):
     res["phase_s"] = time.perf_counter() - t_phase
     say(f"[vp] phase: {res['phase_s']:.1f} s")
     return res
+
+def _mesh_phase(torch, np, card, check, tmp, phase5, p5res, chunk_inputs):
+    """Phase 7 (module docstring): the multi-device layer on meshes of the
+    one card, against the same work without a mesh. Returns the numbers it
+    printed."""
+    import io
+    import re
+    import socket
+
+    import torch.distributed as dist
+
+    from rpe_tpu_torch.io.image_loader import LazyFrameSource
+    from rpe_tpu_torch.ops import kernels
+    from rpe_tpu_torch.parallel import sharded_error_stats
+    from rpe_tpu_torch.parallel.mesh import Mesh
+    from rpe_tpu_torch.parallel.multihost import global_pairs_mesh, \
+        initialize_distributed
+    from rpe_tpu_torch.parallel.sharded_estimator import \
+        estimate_pairs_2d, estimate_sequence_sharded
+    from rpe_tpu_torch.pipeline.batch import BatchProcessor
+    from rpe_tpu_torch.pipeline.estimator import PoseEstimator, \
+        estimate_pair, estimate_sequence_batched
+    from rpe_tpu_torch.utils.synthetic import rotation_error_deg
+
+    t_phase = time.perf_counter()
+    n_pairs = SEQ_FRAMES - 1
+    n_chunks = -(-n_pairs // SEQ_CHUNK)
+    k1_k4 = ("fast_harris", "extract_brief", "match_hamming",
+             "five_point_roots")
+    twice = Mesh(["cuda:0", "cuda:0"], ("pairs",))
+    res = {}
+
+    def launched():
+        torch.cuda.synchronize()
+        return {k: n for k, n in kernels.LAUNCHES.items() if n}
+
+    # a. the KITTI runner with --devices 1 (make_mesh(1): a mesh of the
+    # card), against phase 5's run without a mesh
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out, text = _run_runner(phase5["base"] + [
+        "--devices", "1", "--checkpoint", str(tmp / "mesh1.jsonl"),
+        "--results-dir", str(tmp / "mesh1")], tag="[mesh]")
+    wall = time.perf_counter() - t0
+    ran = launched()
+    want = {k: n_chunks for k in k1_k4}
+    R1, v1 = _pair_rotations(np, _ckpt_records(tmp / "mesh1.jsonl"), n_pairs)
+    dR = float(np.abs(R1 - phase5["R"]).max())
+    ate = (out["ate_sim3"]["rmse"], phase5["out"]["ate_sim3"]["rmse"])
+    check("[mesh] runner --devices 1",
+          ran == want and v1 == phase5["valid"] and dR <= 1e-5
+          and abs(ate[0] - ate[1]) <= 1e-6,
+          f"launches {ran} (want K1-K4 once per chunk, {want}); valid equal"
+          f"={v1 == phase5['valid']}; max |R - R without a mesh| {dR:.3g} "
+          f"(<= 1e-5); ATE sim3 RMSE {ate[0]!r} against {ate[1]!r} "
+          f"(within 1e-6)")
+    m = re.search(r"Throughput: ([\d.]+) pairs/sec/chip", text)
+    res["runner_devices_1"] = dict(
+        pairs_per_s=float(m.group(1)) if m else float("nan"), runner_s=wall,
+        launches=ran, max_abs_dR=dR)
+
+    # b. BatchProcessor on the card listed twice: K1-K4 once per shard.
+    # Each shard runs 8 pairs where the run without a mesh runs 16, and on
+    # the card a batched product may take another kernel (another
+    # summation order) at another batch size, which can move a pair that
+    # RANSAC decides on a near-tie. So the mesh is held to the run without
+    # a mesh at the shard's size (chunk 8: the same frames and pairs per
+    # call), and against chunk 16 to what chunk 8 itself differs by.
+    paths = sorted(phase5["images"].glob("*.png"))
+    got = {}
+    for label, mesh, chunk in (("no mesh", None, SEQ_CHUNK),
+                               ("no mesh, chunk 8", None, SEQ_CHUNK // 2),
+                               ("[cuda:0, cuda:0]", twice, SEQ_CHUNK)):
+        proc = BatchProcessor(phase5["images"], PoseEstimator(phase5["K"]),
+                              None, chunk=chunk, mesh=mesh)
+        kernels.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            R, _, valid, _ = proc.estimate_relative_poses(
+                list(range(SEQ_FRAMES)), LazyFrameSource(paths))
+        ran = launched()
+        pps = proc.meter.pairs_per_sec_per_chip() * proc.meter.n_chips
+        got[label] = (R, valid, ran)
+        say(f"[mesh] BatchProcessor, {label}: {pps:.3f} pairs/s over "
+            f"{n_pairs} pairs at chunk {chunk} ({proc.meter.n_chips} "
+            f"shard(s) on one card; {card}); launches {ran}")
+        res[f"batch {label}"] = dict(pairs_per_s=pps, launches=ran)
+    (R0, v0, _), (R8, v8, _), (R2, v2, ran2) = got.values()
+    d8 = np.abs(R2 - R8).max(axis=(1, 2))       # against chunk 8, per pair
+    d16 = np.abs(R2 - R0).max(axis=(1, 2))      # against chunk 16
+    d8_16 = np.abs(R8 - R0).max(axis=(1, 2))    # chunk 8 against 16
+    moved = [int(i) for i in np.nonzero(d16 > 1e-5)[0]]
+    want = {k: 2 * n_chunks for k in k1_k4}
+    check("[mesh] BatchProcessor on [cuda:0, cuda:0]",
+          ran2 == want and bool((v2 == v8).all())
+          and bool((v2 == v0).all()) and float(d8.max()) <= 1e-5
+          and bool((d16 <= d8_16 + 1e-5).all()),
+          f"launches {ran2} (want K1-K4 once per shard per chunk, {want}); "
+          f"valid equal to chunk 8's={bool((v2 == v8).all())} and chunk "
+          f"16's={bool((v2 == v0).all())}; max |R - R without a mesh at "
+          f"chunk 8| {float(d8.max()):.3g} (<= 1e-5); against chunk 16 "
+          f"pairs {moved} differ by more than 1e-5 "
+          f"({[float(d16[i]) for i in moved]}; rotation "
+          f"{[float(x) for x in rotation_error_deg(R2[moved], R0[moved])]}"
+          f" deg), no pair by more than chunk 8 differs from chunk 16 "
+          f"without a mesh ({[float(d8_16[i]) for i in moved]})")
+    res["batch_moved_vs_chunk16"] = dict(
+        pairs=moved, max_abs_dR=[float(d16[i]) for i in moved],
+        chunk8_vs_16=[float(d8_16[i]) for i in moved])
+    say(f"[mesh] runner pairs/s: phase 5 without a mesh "
+        f"{p5res['pairs_per_s']}, --devices 1 "
+        f"{res['runner_devices_1']['pairs_per_s']}; BatchProcessor without "
+        f"a mesh {res['batch no mesh']['pairs_per_s']:.3f} (chunk 8 "
+        f"{res['batch no mesh, chunk 8']['pairs_per_s']:.3f}), on "
+        f"[cuda:0, cuda:0] {res['batch [cuda:0, cuda:0]']['pairs_per_s']:.3f}"
+        f" ({card})")
+
+    # c. estimate_sequence_sharded on [cuda:0, cuda:0] over phase 4's 9
+    # frames (two blocks of 4 pairs) against estimate_sequence_batched
+    frames, K, keys_np, cfg = chunk_inputs
+    flat = estimate_sequence_batched(frames, K, keys_np, cfg)
+    blocks = np.stack([np.arange(d * 4, d * 4 + 5) for d in range(2)])
+    kernels.reset_launches()
+    sh = estimate_sequence_sharded(frames[blocks], K,
+                                   keys_np.reshape(2, 4, 2), cfg, twice)
+    ran = launched()
+    sh = {k: v.reshape(8, *v.shape[2:]) for k, v in sh.items()}
+    same = {k: bool(torch.equal(sh[k], flat[k]))
+            for k in ("valid", "num_matches", "num_inliers")}
+    dR = float((sh["R"] - flat["R"]).abs().max())
+    dt = float((sh["t"] - flat["t"]).abs().max())
+    check("[mesh] estimate_sequence_sharded on [cuda:0, cuda:0]",
+          all(same.values()) and dR <= 1e-5 and dt <= 1e-4
+          and ran == {k: 2 for k in k1_k4},
+          f"equal {same}; max |dR| {dR:.3g} (<= 1e-5), |dt| {dt:.3g} (<= "
+          f"1e-4); launches {ran} (K1-K4 once per shard)")
+    res["sequence_sharded"] = dict(max_abs_dR=dR, max_abs_dt=dt,
+                                   launches=ran)
+
+    # d. estimate_pairs_2d on a (1, 2) mesh of the card for the 8 pairs,
+    # against estimate_pair (tests/test_parallel.py's contract), and 2 of
+    # the pairs on a (1, 2) CPU mesh against the card's
+    mesh2d = Mesh([["cuda:0", "cuda:0"]], ("pairs", "hyp"))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    p2 = estimate_pairs_2d(frames[:-1], frames[1:], K, keys_np, cfg, mesh2d)
+    ran = launched()
+    res["pairs_2d_ms"] = (time.perf_counter() - t0) * 1e3
+    v2d = p2["valid"].cpu().numpy()
+    R2d = p2["R"].cpu().numpy()
+    one = [estimate_pair(frames[b], frames[b + 1], K, keys_np[b], cfg)
+           for b in range(8)]
+    v1 = np.array([bool(o["valid"]) for o in one])
+    d1 = rotation_error_deg(R2d, np.stack([o["R"].cpu().numpy()
+                                           for o in one]))
+    want = {"fast_harris": 1, "extract_brief": 1, "match_hamming": 1,
+            "five_point_roots": 2}
+    check("[mesh] estimate_pairs_2d on a (1, 2) mesh of the card",
+          bool((v2d == v1).all()) and bool((d1[v1] < 1.0).all())
+          and ran == want,
+          f"valid {v2d.tolist()} estimate_pair {v1.tolist()}; rotation "
+          f"difference (deg) {[round(float(x), 4) for x in d1]} (< 1); "
+          f"launches {ran} (want {want}: detection and matching once, "
+          f"K4 once per hyp shard); {res['pairs_2d_ms']:.1f} ms ({card})")
+    t0 = time.perf_counter()
+    cpu = estimate_pairs_2d(frames[:2], frames[1:3], K, keys_np[:2], cfg,
+                            Mesh([["cpu", "cpu"]], ("pairs", "hyp")))
+    vc = cpu["valid"].numpy()
+    dc = rotation_error_deg(R2d[:2], cpu["R"].numpy())
+    check("[mesh] estimate_pairs_2d CUDA vs CPU (pairs 0-1)",
+          bool((vc == v2d[:2]).all()) and bool((dc <= 0.5).all()),
+          f"valid cuda {v2d[:2].tolist()} cpu {vc.tolist()}, rotation "
+          f"difference (deg) {[float(x) for x in dc]} (<= 0.5); CPU "
+          f"{time.perf_counter() - t0:.1f} s")
+    res["pairs_2d"] = dict(valid=v2d.tolist(),
+                           rot_vs_estimate_pair_deg=[float(x) for x in d1],
+                           rot_cuda_vs_cpu_deg=[float(x) for x in dc],
+                           launches=ran)
+    # e. sharded_error_stats over a one-process NCCL group on loopback:
+    # phase 5's per-pair rotation errors against the scene
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    joined = initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        e = rotation_error_deg(phase5["R"], phase5["R_gt"][None]).astype(
+            np.float32)
+        v = np.array(phase5["valid"])
+        v[:n_pairs // 2] = False     # the first of two shards: none valid
+        want = {k: float(x) for k, x in dict(
+            mean=e[v].mean(), std=e[v].std(), max=e[v].max(),
+            min=e[v].min(), count=v.sum()).items()}
+        rows = []
+        for label, mesh in (("global_pairs_mesh", global_pairs_mesh()),
+                            ("[cuda:0, cuda:0]", Mesh(
+                                twice.devices, ("pairs",),
+                                group=dist.group.WORLD))):
+            st = {k: float(x) for k, x in sharded_error_stats(
+                torch.from_numpy(e), torch.from_numpy(v), mesh).items()}
+            ok = joined and st["count"] == want["count"] and all(
+                abs(st[k] - want[k]) <= tol * abs(want[k])
+                for k, tol in (("mean", 1e-5), ("max", 1e-6),
+                               ("min", 1e-6), ("std", 1e-4)))
+            check(f"[mesh] sharded_error_stats, NCCL group of 1, {label}", ok,
+                  f"{st} against numpy {want} (mean rtol 1e-5, max/min "
+                  f"1e-6, std 1e-4, count exact)")
+            rows.append(st)
+        res["error_stats"] = rows
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    res["phase_s"] = time.perf_counter() - t_phase
+    say(f"[mesh] phase: {res['phase_s']:.1f} s")
+    return res
+
 
 
 @contextlib.contextmanager

@@ -37,8 +37,7 @@ def sequence_parser(description: str, default_step: int,
     p.add_argument("--chunk", type=int, default=32,
                    help="Pairs per dispatch (static batch size)")
     p.add_argument("--devices", type=int, default=0,
-                   help="Shard pairs over this many devices (0 = no mesh; "
-                        "a mesh is not ported yet)")
+                   help="Shard pairs over this many devices (0 = no mesh)")
     p.add_argument("--seed", type=int, default=0,
                    help="RANSAC base seed (per-pair key = seed + frame "
                         "index; sweep seeds spaced wider than the max "
@@ -59,9 +58,12 @@ def sequence_parser(description: str, default_step: int,
     return p
 
 
-def make_mesh(n_devices: int):
-    """None for n_devices <= 0; a mesh is not ported yet."""
+def make_mesh(n_devices: int, device=None):
+    """None for n_devices <= 0, else a 'pairs' mesh of the first n cards
+    (raises when fewer are visible), or of n CPU entries with
+    device="cpu"."""
     if n_devices <= 0:
         return None
-    raise NotImplementedError(
-        "a device mesh is not ported yet: ROADMAP.md Queue 1, \"Multi-GPU\"")
+    from ..parallel.mesh import pairs_mesh
+
+    return pairs_mesh(n_devices, device)

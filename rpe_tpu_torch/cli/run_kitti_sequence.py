@@ -67,8 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk", type=int, default=32,
                    help="Pairs per dispatch (static batch size)")
     p.add_argument("--devices", type=int, default=0,
-                   help="Shard pairs over this many devices (0 = no mesh; "
-                        "a mesh is not ported yet)")
+                   help="Shard pairs over this many devices (0 = no mesh)")
     p.add_argument("--rpe-delta", type=int, default=1,
                    help="Frame delta for RPE (default: 1)")
     p.add_argument("--solver", default="5pt", choices=["5pt", "8pt"],
@@ -159,8 +158,8 @@ def main(argv=None, device=None):
                      f"profile={args.profile}", f"nfeatures={nfeat}",
                      f"cap={estimator.config.orb.extract_cap}"]
                     + [p.name for p in paths])
-    proc = BatchProcessor(images_dir, estimator, None,
-                          chunk=args.chunk, mesh=make_mesh(args.devices),
+    proc = BatchProcessor(images_dir, estimator, None, chunk=args.chunk,
+                          mesh=make_mesh(args.devices, device),
                           checkpoint_path=args.checkpoint,
                           checkpoint_salt=salt)
     frames = list(range(len(paths)))

@@ -31,7 +31,7 @@ def main(argv=None, device=None):
         norm_type="Hamming" if args.feature == "ORB" else "L2",
         max_matches=500,
         euler_convention="yup",  # simulator uses YUP convention
-        mesh=make_mesh(args.devices),
+        mesh=make_mesh(args.devices, device),
         chunk=args.chunk,
         profile=args.profile,
         seed=args.seed,

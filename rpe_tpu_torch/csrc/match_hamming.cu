@@ -450,14 +450,9 @@ static int launch(const uint8_t* bits1, const uint8_t* bits2, const bool* valid1
     if (rc == 0 && N2 > 0) rc = tensor_map(&map2, bits2, P, N2, TILE);
     else if (rc == 0) map2 = map1;      // no column tiles: never read
     if (rc != 0) return rc;
-    static bool attr = false;
-    if (!attr) {
-        cudaError_t e = cudaFuncSetAttribute(
-            hamming_tc_kernel<TOP2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            SMEM_BYTES);
-        if (e != cudaSuccess) return (int)e;
-        attr = true;
-    }
+    static unsigned long long attr_set = 0ull;  // per device, as the attribute
+    rc = smem_attr_per_device(hamming_tc_kernel<TOP2>, SMEM_BYTES, attr_set);
+    if (rc != 0) return rc;
     hamming_tc_kernel<TOP2><<<dim3((N1 + ROWS - 1) / ROWS, P), NTHREADS, SMEM_BYTES, s>>>(
         map1, map2, valid1, valid2, best_d, nn12, second_d, colkey, N1, N2);
     return (int)cudaGetLastError();

@@ -514,13 +514,9 @@ static int launch(const float* desc1, const float* desc2, const bool* valid1,
     else if (rc == 0)
         map2 = map1;                    // no column tiles: never read
     if (rc != 0) return rc;
-    static bool attr = false;
-    if (!attr) {
-        cudaError_t e = cudaFuncSetAttribute(
-            l2_tc_kernel<TOP2>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-        if (e != cudaSuccess) return (int)e;
-        attr = true;
-    }
+    static unsigned long long attr_set = 0ull;  // per device, as the attribute
+    rc = smem_attr_per_device(l2_tc_kernel<TOP2>, SMEM_BYTES, attr_set);
+    if (rc != 0) return rc;
     l2_tc_kernel<TOP2><<<dim3(T1, P), NTHREADS, SMEM_BYTES, st>>>(
         map1, map2, sc.nav1, sc.nav2, sc.flags1, sc.flags2, best_d, nn12, second_d,
         sc.colkey, P, N1, N2);

@@ -99,3 +99,19 @@ static int tensor_map_3d(CUtensorMap* map, CUtensorMapDataType type, int elem,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
+
+// Allow `kernel` `bytes` of dynamic shared memory (above the default 48 KB)
+// on the current device. The attribute is per device, so `done` keeps one
+// bit per device it was set on (devices past 63 set it on every call).
+// Returns 0 or a cudaError_t.
+template <typename Kernel>
+static int smem_attr_per_device(Kernel kernel, int bytes, unsigned long long& done) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64 && (done >> dev & 1ull)) return 0;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) done |= 1ull << dev;
+    return 0;
+}

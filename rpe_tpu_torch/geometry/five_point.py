@@ -298,9 +298,9 @@ def find_root_brackets(coeffs):
     b = coeffs.shape[0]
     brackets = torch.empty((b, 3, MAX_ROOTS), dtype=torch.float32,
                            device=coeffs.device)
-    rc = launch(kernels.ptr(coeffs), kernels.ptr(_device_tan_grid(
-        coeffs.device)), kernels.ptr(brackets), b, kernels.stream_ptr(coeffs))
-    kernels.check("root_brackets", rc)
+    kernels.launch("root_brackets", launch, coeffs, kernels.ptr(coeffs),
+                   kernels.ptr(_device_tan_grid(coeffs.device)),
+                   kernels.ptr(brackets), b)
     t_lo, t_hi, has = brackets.unbind(1)
     return t_lo, t_hi, has > 0.5
 
@@ -361,10 +361,9 @@ def solve_roots_polished(coeffs):
     flags = torch.empty((2, b, MAX_ROOTS), dtype=torch.bool,
                         device=coeffs.device)
     p, q = kernels.ptr(f32), kernels.ptr(flags)
-    rc = launch(kernels.ptr(coeffs), kernels.ptr(_device_tan_grid(
-        coeffs.device)), p, p + 12 * n, p + 16 * n, p + 20 * n, q, q + n, b,
-        kernels.stream_ptr(coeffs))
-    kernels.check("five_point_roots", rc)
+    kernels.launch("five_point_roots", launch, coeffs, kernels.ptr(coeffs),
+                   kernels.ptr(_device_tan_grid(coeffs.device)), p,
+                   p + 12 * n, p + 16 * n, p + 20 * n, q, q + n, b)
     _, _, _, x, y, r_var = f32.unbind(0)
     flip, has = flags.unbind(0)
     return x, y, r_var, flip, has
@@ -382,7 +381,8 @@ def _launchers(name, coeffs):
 
 @functools.lru_cache(maxsize=None)
 def _device_tan_grid(device):
-    """The tan grid on the card, copied there once per device."""
+    """The tan grid on the card, copied there once per device (a tensor's
+    device, so one with its index)."""
     return torch.from_numpy(_tan_grid()).to(device)
 
 

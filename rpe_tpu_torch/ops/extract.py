@@ -87,7 +87,8 @@ def _brief_tables_np(kind: str | None = None):
 
 
 def _brief_tables(dev: torch.device, kind: str | None = None):
-    """`_brief_tables_np(kind)` on `dev`, copied there once per kind."""
+    """`_brief_tables_np(kind)` on `dev`, copied there once per device and
+    kind. `dev` is a tensor's device, so a card comes with its index."""
     return _brief_tables_on(dev, brief_kind(kind))
 
 
@@ -306,12 +307,11 @@ def _launch_brief(lib, atlas, blurred, tbl_x0, rel_y, band, binned,
     bits = torch.empty((f, nb * cap, 256), dtype=torch.uint8, device=dev)
     m10 = torch.empty((f, nb * cap), dtype=torch.float32, device=dev)
     m01 = torch.empty_like(m10)
-    fn = _brief_launcher(lib)
-    rc = fn(brief_mode(lib, binned, quant, kind),
-            *_ptrs(atlas, blurred, tbl_x0, rel_y, pat, pairs, bin_cs, bits,
-                   m10, m01),
-            f, ha, wp, nb, cap, int(band), kernels.stream_ptr(atlas))
-    kernels.check(name, rc)
+    kernels.launch(name, _brief_launcher(lib), atlas,
+                   brief_mode(lib, binned, quant, kind),
+                   *_ptrs(atlas, blurred, tbl_x0, rel_y, pat, pairs, bin_cs,
+                          bits, m10, m01),
+                   f, ha, wp, nb, cap, int(band))
     return bits, m10, m01
 
 
@@ -333,11 +333,9 @@ def _launch_patches(lib, name, atlas, blurred, tbl_x0, rel_y, band):
         raw = None
         m10 = torch.empty((f, nb * cap), dtype=torch.float32, device=dev)
         m01 = torch.empty_like(m10)
-    fn = _patch_launcher(lib)
-    rc = fn(_PATCH_MODES[name], *_ptrs(atlas, blurred, tbl_x0, rel_y, raw,
-                                       blur, m10, m01),
-            f, ha, wp, nb, cap, int(band), kernels.stream_ptr(atlas))
-    kernels.check(name, rc)
+    kernels.launch(name, _patch_launcher(lib), atlas, _PATCH_MODES[name],
+                   *_ptrs(atlas, blurred, tbl_x0, rel_y, raw, blur, m10, m01),
+                   f, ha, wp, nb, cap, int(band))
     return (raw, blur) if m10 is None else (blur, m10, m01)
 
 

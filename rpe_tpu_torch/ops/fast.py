@@ -153,10 +153,9 @@ def fast_harris_rank_map(img, threshold: float = 15.0,
         raise ValueError("fast_harris_rank_map: threshold must be >= 0")
     rank = torch.empty_like(img)
     blur = torch.empty_like(img)
-    rc = _launcher(kernels.lib("fast_harris"))(
-        kernels.ptr(img), kernels.ptr(rank), kernels.ptr(blur), f, h, w,
-        float(threshold), float(k_harris), _GAUSS7, kernels.stream_ptr(img))
-    kernels.check("fast_harris", rc)
+    kernels.launch("fast_harris", _launcher(kernels.lib("fast_harris")), img,
+                   kernels.ptr(img), kernels.ptr(rank), kernels.ptr(blur), f,
+                   h, w, float(threshold), float(k_harris), _GAUSS7)
     return rank, blur
 
 

@@ -143,7 +143,7 @@ def check(name: str, rc: int) -> None:
 
 
 # The launchers' host cost is part of every kernel's time on a path whose
-# device waits for the host, so these two take the shortest calls: the raw
+# device waits for the host, so these take the shortest calls: the raw
 # stream handle (what `torch.cuda.current_stream(dev).cuda_stream` returns,
 # without building a Stream object) and plain integers, which ctypes
 # passes as c_void_p arguments.
@@ -153,6 +153,24 @@ def stream_ptr(t) -> int:
 
 def ptr(t) -> int:
     return t.data_ptr()
+
+
+def launch(name: str, fn, t, *args) -> None:
+    """Launch kernel `name` through its ctypes launcher `fn(*args, stream)`
+    on the device of `t` (the tensors `require_cuda` held to one device),
+    on that device's current stream, and count it.
+
+    The launcher runs on the calling thread's current device, so a launch
+    for tensors on another card enters their device for the call. When
+    the device is already current -- the common case, one card -- that
+    costs one integer compare and no context manager."""
+    d = t.get_device()
+    if d == torch._C._cuda_getDevice():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(d))
+    else:
+        with torch.cuda.device(d):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(d))
+    check(name, rc)
 
 
 def require_cuda(name: str, **tensors) -> None:

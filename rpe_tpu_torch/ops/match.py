@@ -224,11 +224,11 @@ def mutual_nn_hamming(bits1, bits2, valid1, valid2):
     nn12 = torch.empty((p, n1), dtype=torch.int32, device=dev)
     nn21 = torch.empty((p, n2), dtype=torch.int32, device=dev)
     colkey = torch.empty((p, n2), dtype=torch.int32, device=dev)
-    fn = _launcher("match_hamming", "match_hamming_launch", 8)
-    rc = fn(*(kernels.ptr(t) for t in (bits1, bits2, valid1, valid2, best_d,
-                                        nn12, nn21, colkey)),
-            p, n1, n2, kernels.stream_ptr(bits1))
-    kernels.check("match_hamming", rc)
+    kernels.launch("match_hamming",
+                   _launcher("match_hamming", "match_hamming_launch", 8),
+                   bits1, *(kernels.ptr(t) for t in (
+                       bits1, bits2, valid1, valid2, best_d, nn12, nn21,
+                       colkey)), p, n1, n2)
     return best_d, nn12, nn21
 
 
@@ -269,11 +269,9 @@ def _l2_launch(name, fn_name, desc1, desc2, valid1, valid2, out_spec):
                              device=dev) for dtype, side in out_spec)
     scratch = torch.empty(_l2_scratch_bytes(p, n1, n2), dtype=torch.uint8,
                           device=dev)
-    fn = _launcher("match_l2", fn_name, 8)
-    rc = fn(*(kernels.ptr(t) for t in (desc1, desc2, valid1, valid2, *outs,
-                                        scratch)),
-            p, n1, n2, kernels.stream_ptr(desc1))
-    kernels.check(name, rc)
+    kernels.launch(name, _launcher("match_l2", fn_name, 8), desc1,
+                   *(kernels.ptr(t) for t in (desc1, desc2, valid1, valid2,
+                                              *outs, scratch)), p, n1, n2)
     return outs
 
 
@@ -350,10 +348,10 @@ def row_top2(desc1, desc2, valid1, valid2, norm: str = "hamming"):
     outs = (torch.empty((p, n1), dtype=torch.float32, device=dev),
             torch.empty((p, n1), dtype=torch.int32, device=dev),
             torch.empty((p, n1), dtype=torch.float32, device=dev))
-    fn = _launcher("match_hamming", f"{name}_launch", 7)
-    rc = fn(*(kernels.ptr(t) for t in (desc1, desc2, valid1, valid2, *outs)),
-            p, n1, n2, kernels.stream_ptr(desc1))
-    kernels.check(name, rc)
+    kernels.launch(name, _launcher("match_hamming", f"{name}_launch", 7),
+                   desc1, *(kernels.ptr(t) for t in (desc1, desc2, valid1,
+                                                     valid2, *outs)),
+                   p, n1, n2)
     return outs
 
 

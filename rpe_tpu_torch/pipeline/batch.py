@@ -15,8 +15,12 @@ valid=False and the identity instead of aborting the run (strict=True
 restores the abort). Checkpoints (jsonl, a config-hash header, `.stale` on
 a mismatch, per-record frame checks, a salt) and the inlier-collapse
 fallback are the reference's too, and so is the VP (Manhattan) refinement
-of `process_sequence`. The device mesh is not ported yet and raises
-NotImplementedError.
+of `process_sequence`. With a device mesh (parallel/mesh.py), each chunk
+is split into per-device blocks of consecutive pairs
+(parallel/sharded_estimator.estimate_sequence_sharded); the outputs are
+those of the run without a mesh at the shard's size (chunk / devices). On
+a card a batch of another size can move a pose in its last digits and so
+change a RANSAC winner (ROADMAP.md, Known divergences).
 """
 
 from __future__ import annotations
@@ -49,8 +53,7 @@ def _sequence_blocks(sel1, local, n_dev, last_frame_pos):
       to last_frame_pos, so pad slots past the sequence become same-frame
       pairs, which the caller discards.
 
-    Returns (n_dev, local+1) int array of frame positions. The mesh path
-    that consumes it is not ported yet (ROADMAP.md Queue 1, "Multi-GPU").
+    Returns (n_dev, local+1) int array of frame positions.
     """
     blocks = np.empty((n_dev, local + 1), dtype=np.int64)
     for d in range(n_dev):
@@ -70,10 +73,14 @@ class BatchProcessor:
     """Sequence-pair trajectory processor (the reference's API).
 
     Knobs beside the reference's:
-      chunk: pairs per dispatch (the last chunk is padded).
-      mesh: must be None (multi-device sharding is not ported yet).
+      chunk: pairs per dispatch (the last chunk is padded); under a mesh
+        rounded down to a multiple of its size (at least one pair per
+        device).
+      mesh: a 1-D 'pairs' mesh (parallel/mesh.py) to shard each chunk over,
+        or None.
       strict: reference-style abort on any failed pair.
-    The device is the estimator's (`PoseEstimator.device`). After a run,
+    The device is the estimator's (`PoseEstimator.device`), or under a mesh
+    its devices, the fallback on the first of them. After a run,
     `meter` holds its ThroughputMeter and `timer` its stage times, printed
     with the throughput: decode (host image decode), stage (pinned
     host-to-device copies), dispatch (the estimator call) and flush
@@ -126,16 +133,21 @@ class BatchProcessor:
 
     def _estimate_all_pairs(self, frames, imgs):
         """Estimate every consecutive pair; returns per-pair arrays."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet: ROADMAP.md Queue 1, "
-                '"Multi-GPU"')
         n_pairs = len(frames) - 1
-        dev = self.pose_estimator.device
+        mesh = self.mesh
+        n_dev = 1 if mesh is None else mesh.size
+        dev = self.pose_estimator.device if mesh is None \
+            else mesh.devices.flat[0]
         K = torch.as_tensor(np.asarray(self.pose_estimator.K),
                             dtype=torch.float32, device=dev)
         cfg = self.pose_estimator.config
         chunk = min(self.chunk, n_pairs)
+        if mesh is not None:
+            from ..parallel.mesh import shard_pairs
+            from ..parallel.sharded_estimator import \
+                estimate_sequence_sharded
+
+            chunk = max(chunk // n_dev, 1) * n_dev
         timer = self.timer = StageTimer()
 
         R_out = np.zeros((n_pairs, 3, 3), dtype=np.float64)
@@ -146,7 +158,7 @@ class BatchProcessor:
 
         done = self._load_checkpoint(frames, R_out, t_out, valid_out,
                                      nm_out, ni_out)
-        meter = ThroughputMeter(n_chips=1)
+        meter = ThroughputMeter(n_chips=n_dev)
         meter.start()
 
         def _to_device(host):
@@ -159,16 +171,33 @@ class BatchProcessor:
 
         def _stage(start):
             """Decode one chunk's frames and enqueue their copy to the
-            device. The padded tail repeats the last frame (same-frame pairs,
-            discarded at the flush)."""
+            device(s). The padded tail repeats the last frame (same-frame
+            pairs, discarded at the flush); under a mesh, device d gets the
+            local+1 consecutive frames of its pairs (`_sequence_blocks`)."""
             end = min(start + chunk, n_pairs)
             pad = chunk - (end - start)
             sel1 = list(range(start, end)) + [end - 1] * pad
+            if mesh is None:
+                with timer.stage("decode"):
+                    host = imgs[list(range(start, end + 1)) + [end] * pad]
+                with timer.stage("stage"):
+                    return start, end, (_to_device(host), K,
+                                        _pair_keys(self.seed, sel1, dev))
+            local = chunk // n_dev
             with timer.stage("decode"):
-                host = imgs[list(range(start, end + 1)) + [end] * pad]
+                host = imgs[_sequence_blocks(sel1, local, n_dev, n_pairs)]
             with timer.stage("stage"):
-                arrs = (_to_device(host), K, _pair_keys(self.seed, sel1, dev))
-            return start, end, arrs
+                keys = _pair_keys(self.seed, sel1, "cpu")
+                fblk, kblk = shard_pairs(mesh, host,
+                                         keys.reshape(n_dev, local, 2))
+            return start, end, (fblk, K, kblk)
+
+        def _dispatch(arrs):
+            """Enqueue one chunk's work; (chunk, ...) outputs."""
+            if mesh is None:
+                return estimate_sequence_batched(*arrs, cfg=cfg, device=dev)
+            out = estimate_sequence_sharded(*arrs, cfg=cfg, mesh=mesh)
+            return {k: v.reshape(chunk, *v.shape[2:]) for k, v in out.items()}
 
         starts = [s for s in range(0, n_pairs, chunk)
                   if not all(i in done
@@ -198,7 +227,7 @@ class BatchProcessor:
         for si in range(len(starts)):
             start, end, arrs = pending
             with timer.stage("dispatch"):
-                out = estimate_sequence_batched(*arrs, cfg=cfg, device=dev)
+                out = _dispatch(arrs)
             pending = _stage(starts[si + 1]) if si + 1 < len(starts) else None
             if prev is not None:
                 _flush(prev)
@@ -209,7 +238,8 @@ class BatchProcessor:
         # Inlier-collapse fallback: pairs the work-cut profile could not
         # hold (invalid, or inliers below the profile's collapse threshold)
         # are re-estimated at the configured stronger profile, in fixed
-        # pair batches of the pairs-batched entry point.
+        # pair batches of the pairs-batched entry point (under a mesh on its
+        # first device, as the reference's runs on JAX's default device).
         if (cfg.fallback_profile and cfg.fallback_min_inliers > 0
                 and starts):
             bad = np.where((~valid_out)

@@ -19,14 +19,21 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller says so."""
+    """The device an entry point runs on: CUDA unless the caller says so.
+
+    A CUDA device always comes back with its index (`cuda:N`, the current
+    device when none is given), so that the per-device caches keyed on it
+    (the tables copied to a card once) name a real card."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "rpe_tpu_torch runs on a CUDA device and none is available; "
                 "pass device='cpu' to run the plain PyTorch versions")
-        return torch.device("cuda")
-    return torch.device(device)
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def full_precision() -> None:

@@ -3,7 +3,7 @@ from PNGs written to disk: pair estimation across two chunks with a padded
 tail (5 frames, 4 pairs, chunk 3), process_sequence's GT anchoring, the
 checkpoint cases of tests/test_checkpoint.py re-expressed on the port, the
 inlier-collapse fallback of tests/test_fallback.py against the reference's
-orb512 answers, and the unported options.
+orb512 answers, and the options once refused (a device mesh, VP).
 
 Config: tests/test_checkpoint.py's TINY (ORB-512 on 3 levels, 128 matches,
 256 hypotheses). Contracts: `valid` and `num_matches` exactly; relative
@@ -297,11 +297,34 @@ def test_fallback_adopts_the_references_pairs(seq, capsys):
 
 
 def test_unported_options_raise(seq):
-    _, tp = _processors(seq)
-    tp.mesh = object()
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP.md Queue 1, "Multi-GPU"'):
-        tp.process_sequence(FRAMES)
+    """The options once refused run. A device mesh: process_sequence over
+    frames 0-3 under a two-entry CPU mesh at chunk 3 (rounded down to 2,
+    so the last of the 3 pairs sits in a padded chunk) equals the run
+    without a mesh (`valid` and matches exactly, R within 1e-5) and the
+    reference's under a 2-device JAX mesh (the file's contract). VP
+    refinement. Fewer than 2 frames still raise."""
+    from jax.sharding import Mesh as JMesh
+
+    from rpe_tpu_torch.parallel.mesh import pairs_mesh
+
+    frames = FRAMES[:4]
+    jp, tp = _processors(seq)
+    base = tp.process_sequence(frames)
+    jp.mesh = JMesh(np.array(jax.devices()[:2]), ("pairs",))
+    tp.mesh = pairs_mesh(2, device="cpu")
+    ref, got = jp.process_sequence(frames), tp.process_sequence(frames)
+    assert tp.timer.counts["dispatch"] == 2     # pairs (0, 1), then (2, pad)
+    assert tp.meter.n_chips == 2 and tp.meter.pairs == 3
+    for want in (base, ref):
+        assert got["frames"] == want["frames"] == frames[1:]
+        np.testing.assert_array_equal(got["valid"], want["valid"])
+        np.testing.assert_array_equal(got["num_matches"],
+                                      want["num_matches"])
+    assert got["valid"].all()
+    np.testing.assert_allclose(np.stack(got["R"]), np.stack(base["R"]),
+                               rtol=0, atol=1e-5)
+    assert rotation_error_deg(np.stack(got["R"]),
+                              np.stack(ref["R"])).max() < 0.5
     d, K, _ = seq
     gt = TGT(d / "camera_poses.txt")
     gt.load()

@@ -807,3 +807,35 @@ def test_vp_device_twin_card_against_cpu(cuda, room):
     R, used, stats = vp_refine.refine_rotation_with_vps_device(
         frames[0], frames[1], R_prev, R_rel, K, cfg, device="cuda")
     assert R.is_cuda and used.is_cuda and stats["cost_opt"].is_cuda
+
+
+@pytest.mark.parametrize("entries", [1, 2], ids=["one_card", "card_twice"])
+def test_mesh_matches_the_run_without_a_mesh(scene, cuda, entries):
+    """estimate_sequence_sharded on a one-card mesh (`pairs_mesh(1)`) and on
+    the card listed twice: K1-K4 launched once per shard, and the outputs
+    of the run without a mesh (`valid` and matches equal, R within
+    1e-5)."""
+    from rpe_tpu_torch.parallel.mesh import Mesh, pairs_mesh
+    from rpe_tpu_torch.parallel.sharded_estimator import \
+        estimate_sequence_sharded
+
+    frames, K, _, _ = scene                       # 3 frames, 2 pairs
+    keys = torch.stack([rng.PRNGKey(i) for i in range(2)])
+    flat = estimate_sequence_batched(frames, K, keys, SMALL)
+    mesh = pairs_mesh(1) if entries == 1 else Mesh(["cuda:0"] * 2,
+                                                   ("pairs",))
+    local = 2 // entries
+    blocks = np.stack([np.arange(d * local, d * local + local + 1)
+                       for d in range(entries)])
+    kernels.reset_launches()
+    out = estimate_sequence_sharded(frames[blocks], K,
+                                    keys.reshape(entries, local, 2), SMALL,
+                                    mesh)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in kernels.LAUNCHES.items() if n} == {
+        k: entries for k in ORB_KERNELS | {"match_hamming"}}
+    out = {k: v.reshape(2, *v.shape[2:]) for k, v in out.items()}
+    assert out["R"].device == mesh.devices.flat[0]
+    assert torch.equal(out["valid"], flat["valid"])
+    assert torch.equal(out["num_matches"], flat["num_matches"])
+    assert float((out["R"] - flat["R"]).abs().max()) <= 1e-5

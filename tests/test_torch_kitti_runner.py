@@ -122,8 +122,14 @@ def test_runner_outputs(runs):
 
 
 def test_runner_refuses_a_mesh(runs):
+    """Once a refusal, now the mesh path: `--devices 2` on the CPU (two
+    CPU entries, chunk 2 split one pair a device) writes the
+    trajectory_summary.json of the run without a mesh."""
     root = runs[0]
-    with pytest.raises(NotImplementedError, match='"Multi-GPU"'):
-        trun.main(["--images-dir", str(root / "image_0"), "--poses",
-                   str(root / "poses.txt"), "--devices", "2",
-                   "--results-dir", str(root / "mesh")], device="cpu")
+    trun.main(["--images-dir", str(root / "image_0"), "--poses",
+               str(root / "poses.txt"), "--calib", str(root / "calib.txt"),
+               "--chunk", "2", "--nfeatures", "512", "--devices", "2",
+               "--results-dir", str(root / "mesh")], device="cpu")
+    assert json.loads((root / "mesh" / "trajectory_summary.json")
+                      .read_text()) == json.loads(
+        (root / "port" / "trajectory_summary.json").read_text())

@@ -177,13 +177,15 @@ def test_port_imports_neither_jax_nor_reference():
     subpackages = {f.relative_to(ROOT / "rpe_tpu_torch").parts[0]
                    for f in files[:-1]}
     assert {"io", "cli", "pipeline", "geometry", "ops", "utils",
-            "viz", "tools"} <= subpackages
+            "viz", "tools", "parallel"} <= subpackages
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {f"rpe_tpu_torch/{m}.py" for m in (
         "ops/lsd", "geometry/vp_refine", "pipeline/orchestrator",
         "viz/visualizer", "cli/run_simulator_data", "cli/run_phone_data",
         "cli/run_vo_database_salah", "cli/run_single_pair",
-        "tools/calibrate", "ops/brief_cv2_pattern")} <= names
+        "tools/calibrate", "ops/brief_cv2_pattern", "parallel/__init__",
+        "parallel/mesh", "parallel/collectives", "parallel/multihost",
+        "parallel/sharded_estimator")} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -228,7 +230,8 @@ def test_port_keeps_its_own_decoder_and_no_path_into_the_reference():
                     assert "rpe_tpu" not in line, (f, line)
 
 
-@pytest.mark.parametrize("sub", ["ops", "geometry", "pipeline", "utils"])
+@pytest.mark.parametrize("sub", ["ops", "geometry", "pipeline", "utils",
+                                 "parallel"])
 def test_subpackages_export_the_reference_names(sub):
     """Each subpackage's `__all__` is the reference's, every name bound;
     the reference's fused matchers name the port's kernel-backed ones."""
@@ -261,3 +264,101 @@ def test_calibration_tool_imports_neither_jax_nor_reference():
     assert any(isinstance(n, ast.ImportFrom) and n.level == 2
                and n.module == "geometry.vp_refine"
                and n.names[0].name == "_so3_exp_np" for n in top)
+
+
+# ---- device seams: the launchers and caches are right on any card -----------
+
+def test_shared_memory_attribute_is_set_per_device():
+    """cudaFuncSetAttribute applies to the current device only, so every
+    source that raises a kernel's shared-memory limit reads the device
+    (cudaGetDevice) and keeps a bit per device; no once-per-process
+    `static bool` guard remains."""
+    import re
+
+    csrc = ROOT / "rpe_tpu_torch" / "csrc"
+    setters = 0
+    for f in sorted(csrc.glob("*.cu*")):
+        text = f.read_text()
+        assert not re.search(r"static\s+bool", text), f
+        n = text.count("cudaFuncSetAttribute(")
+        setters += n
+        if n:
+            assert "cudaGetDevice(&dev)" in text, f
+            assert re.search(r"unsigned long long\s*&?\s*\w+", text), f
+    assert setters >= 2        # fast_harris.cu's and sm90.cuh's helper
+    for f in ("match_hamming.cu", "match_l2.cu"):
+        assert (csrc / f).read_text().count("smem_attr_per_device(") == 1, f
+    assert "smem_attr_per_device" in (csrc / "sm90.cuh").read_text()
+
+
+def test_every_launch_goes_through_the_device_guard():
+    """Each wrapper launches with `kernels.launch` (which enters the
+    tensors' device); no wrapper reads a stream or counts a launch itself."""
+    launches = 0
+    for f in sorted((ROOT / "rpe_tpu_torch").rglob("*.py")):
+        if f.name == "kernels.py":
+            continue
+        text = f.read_text()
+        assert "stream_ptr(" not in text, f
+        assert "kernels.check(" not in text, f
+        launches += text.count("kernels.launch(")
+    assert launches == 8    # K1, K2/K12, K8-K10, K3, K7/K6-L2, K6-H, K4, K5
+
+
+class _FakeCudaTensor:
+    def __init__(self, index):
+        self.index = index
+
+    def get_device(self):
+        return self.index
+
+
+def test_launch_enters_the_tensors_device(monkeypatch):
+    """`kernels.launch` hands the launcher the stream of its tensor's
+    device, entering that device only when it is not current."""
+    from rpe_tpu_torch.ops import kernels
+
+    entered = []
+
+    class _Guard:
+        def __init__(self, d):
+            self.d = d
+
+        def __enter__(self):
+            entered.append(self.d)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0,
+                        raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda d: 1000 + d, raising=False)
+    monkeypatch.setattr(torch.cuda, "device", _Guard)
+    before = kernels.LAUNCHES["fast_harris"]
+    calls = []
+
+    def fn(*args):
+        calls.append(args)
+        return 0
+
+    kernels.launch("fast_harris", fn, _FakeCudaTensor(0), 7, 8)
+    assert calls[-1] == (7, 8, 1000) and entered == []
+    kernels.launch("fast_harris", fn, _FakeCudaTensor(3), 7, 8)
+    assert calls[-1] == (7, 8, 1003) and entered == [3]
+    assert kernels.LAUNCHES["fast_harris"] == before + 2
+    kernels.LAUNCHES["fast_harris"] = before
+
+
+def test_resolve_device_names_the_card(monkeypatch):
+    """A CUDA device always comes back indexed, so the per-device caches
+    (`_device_tan_grid`, `_brief_tables_on`) are keyed on a real card."""
+    from rpe_tpu_torch.utils.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 2)
+    assert resolve_device(None) == torch.device("cuda", 2)
+    assert resolve_device("cuda") == torch.device("cuda", 2)
+    assert resolve_device(torch.device("cuda")) == torch.device("cuda", 2)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
