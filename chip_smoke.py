@@ -34,7 +34,13 @@ Phases (any failure exits non-zero before the final line):
      RPE_BRIEF=cv2 with rounded samples, and K2 with rounded samples
      alone, against their plain versions in the same mode on the real
      tables (bits >= 0.999, moments as K2's), each with its time and
-     bound (chip_smoke.json "modes");
+     bound (chip_smoke.json "modes"); the port's fixed-order kernels: P1
+     (the 5-point constraint coefficients) on the 8 pairs x 256 samples
+     (within 1e-5 of its plain version, no further from a float64 run
+     than the plain float32 one + 1e-6, bit-equal split in two calls) and
+     P2 on every product and sum it takes in one ORB call (within 1e-6 of
+     sum |a| |b| of torch.matmul / .sum, bit-equal split in two), each
+     timed with its bound, P2 beside torch.matmul / .sum;
   4. paths: `estimate_sequence_batched` on the 9 frames (8 pairs) at
      EstimatorConfig() (ORB, Hamming cross-check: K1-K4), SIFT with L2
      cross-check (config A: K7, K4), SIFT with the L2 Lowe ratio test
@@ -98,11 +104,11 @@ Phases (any failure exits non-zero before the final line):
      phase 5 with `--devices 1` (`make_mesh(1)`): K1-K4 once per chunk,
      per-pair R within 1e-5 of phase 5's, `valid` equal, the same ATE;
      (b) `BatchProcessor` on phase 5's PNGs with the card listed twice
-     ([cuda:0, cuda:0]): K1-K4 once per shard per chunk, `valid` equal and
-     R within 1e-5 of its run without a mesh at the shard's 8 pairs a call,
-     against chunk 16 `valid` equal and no pair further than chunk 8
-     without a mesh is from it (a batched product's kernel on the card
-     depends on the batch size), pairs/s of each beside phase 5's; (c)
+     ([cuda:0, cuda:0]): K1-K4 and P1 once per shard per chunk, and the
+     mesh and chunk 8 without a mesh each held to chunk 16 without a mesh
+     as tests/test_sharding.py:182-187 holds the reference (`valid` and
+     `num_inliers` equal, R within 1e-5, t within 1e-4; the largest |dR|
+     and |dt| printed), pairs/s of each beside phase 5's; (c)
      `estimate_sequence_sharded` on that mesh over phase 4's 9 frames
      equal to `estimate_sequence_batched` (R within 1e-5, t 1e-4);
      (d) `estimate_pairs_2d` on a (1, 2) mesh of the card for phase 4's 8
@@ -112,7 +118,16 @@ Phases (any failure exits non-zero before the final line):
      `sharded_error_stats` over a one-process NCCL group started by
      `initialize_distributed` on a loopback address, on the card's global
      mesh and on [cuda:0, cuda:0], equal to numpy's statistics; the group
-     is destroyed after.
+     is destroyed after;
+  8. batch invariance: the ORB path (`estimate_sequence_batched`) on
+     phase 5's 33 frames at 32 pairs in one call, 16 + 16, 8 x 4 and
+     1 x 32: R, t, `valid`, `num_inliers` and `num_matches` bit-equal,
+     each split launching K1-K4 and P1 once per call; the KITTI runner on
+     phase 5's PNGs at --chunk 32 against phase 5's --chunk 16: per-pair R,
+     `valid` and the ATE equal.
+Every path's launch gate counts P1 once and P2 `P2_PER_CALL` times per
+estimator call (`P2_PER_CALL_LO` under LO-RANSAC; rpe_tpu_torch/ops/
+kernels.py).
 The line before the last is the kernel JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -160,6 +175,11 @@ SEQ_RPE_ROT_DEG = 0.12      # RPE (delta 1) rotation RMSE
 VP_FRAMES, VP_CHUNK = 17, 16
 VP_ROT_GT_DEG = 2.0         # max rotation error of a pair vs the scene
 
+# P1's float operations per hypothesis (the epipolar rows 25, Householder
+# 2290, the degree-2 products 956, the constraints 3880, norms and
+# division 610) and its bytes (pts1, pts2 in; null4, coeffs out)
+P1_OPS, P1_BYTES = 7761, 80 + (36 + 200) * 4
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
@@ -178,8 +198,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
     sys.path.insert(0, str(HERE))
+    sys.path.insert(0, str(HERE / "tests"))      # torch_judges
 
     import numpy as np
+    from torch_judges import p1_judge
 
     from rpe_tpu_torch.config import EstimatorConfig, MatcherConfig, \
         RansacConfig
@@ -273,6 +295,22 @@ def main() -> None:
         return s.elapsed_time(e) / calls
 
     queued = {}
+    device = {}
+
+    def device_ms(fn, frag, reps=5):
+        """Device time per call of the kernels whose name holds `frag`
+        (torch.profiler's device events), over `reps` calls."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.time_range.elapsed_us() for e in prof.events()
+                   if frag in e.name and str(getattr(
+                       e, "device_type", "")).endswith("CUDA")) / reps / 1e3
 
     def bound(nbytes, ops, rate):
         t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / rate
@@ -726,14 +764,19 @@ def main() -> None:
     # or on two close roots, and the reference's own finders leave such
     # roots marked (scripts/k4_root_residuals.py), so there the kernel may
     # leave no more of them than its plain version does on the same input.
-    # The plain version's converged roots reappear among the kernel's.
+    # The plain version's converged roots reappear among the kernel's. The
+    # kernel undoes a polish that carries a root to |z| >= fp.ZKEEP (the
+    # plain version keeps it, beyond the grid): it may undo no more roots
+    # than the plain version's polish carries that far, plus one per
+    # thousand of the plain version's roots (rounded up).
     c9 = _exact_minimal_coeffs(np, torch, fp, 9, dev)
     c2048 = _exact_minimal_coeffs(np, torch, fp, 2048, dev)
     for label, c in (
             ("exact problems, B=9", c9),
             ("exact problems, B=2048", c2048),
             ("main path", coeffs)):
-        kern, plain = fp.solve_roots_polished(c), fp.solve_roots_plain(c)
+        *kern, undone = fp._solve_roots_polished(c)
+        plain = fp.solve_roots_plain(c)
         good, n_roots, worst, zmax, reproduced, n_conv, dz = \
             _five_point_contract(np, fp, c, kern, plain)
         good_p, n_p = _five_point_contract(np, fp, c, plain, plain)[:2]
@@ -741,8 +784,11 @@ def main() -> None:
         exact = label.startswith("exact")
         sound = (good == n_roots if c.shape[0] == 9
                  else n_roots - good <= n_p - good_p)
+        zp = torch.where(plain[3], 1.0 / plain[2].abs(), plain[2].abs())
+        n_far = int((plain[4] & (zp >= fp.ZKEEP)).sum())
+        n_left, cap = int(undone.sum()), n_far + -(-n_p // 1000)
         check(f"K4 five_point_roots ({label})",
-              sound and zmax < 1.2e3 and frac >= 0.95
+              sound and zmax < 1.2e3 and frac >= 0.95 and n_left <= cap
               and (n_roots >= 3 * c.shape[0] or not exact),
               f"B={c.shape[0]}, {n_roots} kernel roots"
               f"{' (>= 3B)' if exact else ''}, {n_roots - good} fail the "
@@ -751,7 +797,9 @@ def main() -> None:
               f"({'none may' if c.shape[0] == 9 else 'no more'}), max |z| "
               f"{zmax:.3e} (< 1.2e3), plain converged roots reproduced "
               f"{reproduced}/{n_conv} = {frac:.4f} (>= 0.95), max |dz| "
-              f"{dz:.3e}")
+              f"{dz:.3e}; polishes the kernel undid (|z| >= "
+              f"{fp.ZKEEP:g}) {n_left} (<= {cap}: the plain version's "
+              f"{n_far} beyond it + 1 per 1000 of its roots)")
     n_roots = int(kern[4].sum())
     bsz = coeffs.shape[0]
     k4_ops = bsz * 97 * 835 + n_roots * (10 * 835 + 11000)
@@ -809,13 +857,97 @@ def main() -> None:
         plain_ms=cuda_ms(lambda: fp.find_root_brackets_plain(c2048), iters=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     queued["root_brackets"] = queued_ms(lambda: fp.find_root_brackets(c2048))
-    del flush
+
+    # P1 -- the constraint coefficients of the 8 pairs x 256 samples (K4's
+    # input above), held by tests/torch_judges.py `p1_judge` (within 1e-5
+    # of the float64 run on every hypothesis, and of the plain version
+    # where that is itself within 1e-5 of the float64 run), and bit-equal
+    # when the pairs are estimated in two calls
+    s1, s2 = _main_path_samples(torch, dets, cfg, K, dev)
+    n_k, c_k = fp.constraint_coeffs(s1, s2)
+    n_p, c_p = fp.constraint_coeffs_plain(s1, s2)
+    _, c_d = fp.constraint_coeffs_plain(s1.double(), s2.double())
+    half = s1.shape[0] // 2
+    parts = [fp.constraint_coeffs(s1[a:b], s2[a:b])
+             for a, b in ((0, half), (half, s1.shape[0]))]
+    p1_split = all(torch.equal(torch.cat([q[i] for q in parts]), x)
+                   for i, x in enumerate((n_k, c_k)))
+    p1_ok, p1_err, err_k, err_p, n_arb = p1_judge(c_k, c_p, c_d)
+    pts = torch.cat([s1, s2], -1).reshape(-1, 5, 4)
+    repeated = int(sum(len({tuple(r) for r in h}) < 5
+                       for h in pts.cpu().tolist()))
+    check("P1 five_point_coeffs", p1_ok and p1_split,
+          f"{tuple(s1.shape[:2])} samples: max |kernel - plain| {p1_err:.3e}"
+          f" (<= 1e-5) on the {pts.shape[0] - n_arb} whose plain float32 "
+          f"coefficients are within 1e-5 of its float64 run (not on the "
+          f"other {n_arb}; {repeated} samples repeat a point); against "
+          f"float64 on all: kernel {err_k:.3e} (<= 1e-5 and <= plain + "
+          f"1e-6), plain float32 {err_p:.3e}; max |kernel - plain| over all "
+          f"{float((c_k - c_p).abs().max()):.3e}, null4 "
+          f"{float((n_k - n_p).abs().max()):.3e}; bit-equal split in two "
+          f"calls={p1_split}")
+    m_h = s1.shape[0] * s1.shape[1]
+    b_ms, b_by = bound(m_h * P1_BYTES, m_h * P1_OPS, FP32_OPS_PER_S)
+    rows["five_point_coeffs"] = dict(
+        name="five_point_coeffs", route="cuda",
+        source="rpe_tpu_torch/csrc/five_point_coeffs.cu",
+        # port-only: no Pallas kernel; the reference's XLA code it computes
+        replaces="rpe_tpu/geometry/five_point.py:181", max_abs_err=p1_err,
+        ms=cuda_ms(lambda: fp.constraint_coeffs(s1, s2)),
+        plain_ms=cuda_ms(lambda: fp.constraint_coeffs_plain(s1, s2),
+                         iters=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    queued["five_point_coeffs"] = queued_ms(
+        lambda: fp.constraint_coeffs(s1, s2))
+    device["five_point_coeffs"] = device_ms(
+        lambda: fp.constraint_coeffs(s1, s2), "coeffs_kernel")
+
+    # P2 -- every product and sum it takes in one call of the ORB path on
+    # the 9 frames, recorded from that call: each held by
+    # tests/torch_judges.py `p2_judge` to the float64 product and to
+    # torch.matmul / .sum(-1) (its plain version, which is also the library
+    # call), and bit-equal when the batch is split in two along the pair
+    # axis; timed as the call's whole set of launches
+    keys_np = np.stack([np.array([0, i], np.uint32) for i in range(8)])
+    ops, p2_reads = _record_p2(torch, lambda: estimate_sequence_batched(
+        frames, K, keys_np, cfg, device=dev))
+    p2_ok, p2_err, p2_rel, p2_split, p2_bytes, p2_flops = _p2_contract(
+        torch, ops, p2_reads)
+    check("P2 fixed_order_bmm",
+          p2_ok and p2_split and len(ops) == kernels.P2_PER_CALL,
+          f"{len(ops)} products and sums of one ORB call (want "
+          f"{kernels.P2_PER_CALL}), shapes "
+          f"{sorted({_op_shape(o) for o in ops})}; "
+          f"held to torch.matmul/.sum and float64={p2_ok} (largest abs "
+          f"difference from the plain {p2_err:.3e}; relative to "
+          f"sum|a||b|: kernel against float64 {p2_rel[0]:.3e} (<= 1e-6), "
+          f"kernel against plain {p2_rel[1]:.3e}, plain against float64 "
+          f"{p2_rel[2]:.3e}); bit-equal split in two={p2_split}; bytes "
+          f"read and written once {p2_bytes} (an element a and b share "
+          f"counted once)")
+    b_ms, b_by = bound(p2_bytes, p2_flops, FP32_OPS_PER_S)
+    rows["fixed_order_bmm"] = dict(
+        name="fixed_order_bmm", route="cuda",
+        source="rpe_tpu_torch/csrc/fixed_order.cu",
+        # port-only: no Pallas kernel; the reference's XLA dot it computes
+        replaces="rpe_tpu/geometry/epipolar.py:77", max_abs_err=p2_err,
+        ms=cuda_ms(lambda: [_p2_run(*o) for o in ops]),
+        plain_ms=cuda_ms(lambda: [_p2_plain(*o) for o in ops]),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: [_p2_plain(*o) for o in ops]))
+    queued["fixed_order_bmm"] = queued_ms(
+        lambda: [_p2_run(*o) for o in ops])
+    device["fixed_order_bmm"] = device_ms(
+        lambda: [_p2_run(*o) for o in ops], "bmm_kernel")
+    del flush, ops
 
     for r in rows.values():
         lib = ("none: no single PyTorch call computes it"
                if r["library_ms"] is None else f"{r['library_ms']:.4f}")
         q = (f" (queued {queued[r['name']]:.4f} ms per call)"
              if r["name"] in queued else "")
+        if r["name"] in device:
+            q += f" (device {device[r['name']]:.4f} ms per call)"
         say(f"{r['name']}: kernel {r['ms']:.4f} ms{q}, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}; the kernel at "
@@ -823,7 +955,6 @@ def main() -> None:
             f" ({card})")
 
     # ---- 4. paths ---------------------------------------------------------------
-    keys_np = np.stack([np.array([0, i], np.uint32) for i in range(8)])
     orb = ("fast_harris", "extract_brief")
     orb_k = orb + ("match_hamming", "five_point_roots")
     # (label, config, kernels launched -- each once unless counted --,
@@ -875,6 +1006,9 @@ def main() -> None:
     for label, pcfg, expect, gates, same_bits in paths:
         if not isinstance(expect, dict):
             expect = {k: 1 for k in expect}
+        expect = expect | kernels.geometry_launches(1, (
+            kernels.P2_PER_CALL_LO if pcfg.ransac.lo
+            else kernels.P2_PER_CALL))
         with _gates(gates):
             estimate_sequence_batched(frames, K, keys_np, pcfg, device=dev)
             torch.cuda.synchronize()
@@ -957,6 +1091,10 @@ def main() -> None:
             torch, np, card, check, Path(seq_dir), phase5,
             summary["sequence runner"], (frames, K, keys_np, cfg))
 
+        # ---- 8. batch invariance --------------------------------------------
+        summary["batch invariance"] = _batch_phase(
+            torch, np, card, check, Path(seq_dir), phase5)
+
     if "--profile" in sys.argv:
         _profile_main_path(torch, np, estimate_sequence_batched,
                            {"ORB": cfg, "SIFT A": cfg_a, "SIFT B": cfg_b},
@@ -967,12 +1105,85 @@ def main() -> None:
     line = {"kernels": [rows[k] for k in kernels.KERNELS]}
     with open(OUT_DIR / "chip_smoke.json", "w") as f:
         json.dump(dict(line, card=card, paths=summary, queued_ms=queued,
-                       modes=modes), f, indent=1)
+                       device_ms=device, modes=modes), f, indent=1)
     say(f"nvidia-smi: {card}")
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def _batch_phase(torch, np, card, check, tmp, phase5):
+    """Phase 8 (module docstring): a pair's pose does not depend on the
+    batch it is estimated in. Returns the numbers it printed."""
+    from rpe_tpu_torch.config import EstimatorConfig
+    from rpe_tpu_torch.ops import kernels
+    from rpe_tpu_torch.pipeline.estimator import estimate_sequence_batched
+    from rpe_tpu_torch.utils.synthetic import make_sequence
+
+    t_phase = time.perf_counter()
+    n = SEQ_FRAMES - 1
+    k1_k4 = ("fast_harris", "extract_brief", "match_hamming",
+             "five_point_roots")
+    frames, K, _ = make_sequence(SEQ_FRAMES, H, W, seed=0, step=SEQ_STEP,
+                                 rot_deg=SEQ_ROT_DEG)
+    imgs = torch.from_numpy(frames).cuda()
+    keys = np.stack([np.array([0, i], np.uint32) for i in range(n)])
+    cfg = EstimatorConfig()
+    fields = ("R", "t", "valid", "num_inliers", "num_matches")
+    runs, res = {}, {}
+    for size in (n, 16, 8, 1):
+        calls = -(-n // size)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        outs = [estimate_sequence_batched(imgs[a:a + size + 1], K,
+                                          keys[a:a + size], cfg)
+                for a in range(0, n, size)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ran = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        runs[size] = {k: torch.cat([o[k] for o in outs]) for k in fields}
+        want = {k: calls for k in k1_k4} | kernels.geometry_launches(calls)
+        check(f"[batch] {calls} x {size} pairs launches", ran == want,
+              f"{ran} (want {want})")
+        say(f"[batch] {calls} x {size} pairs: {n / dt:.3f} pairs/s ({card})")
+        res[f"pairs_per_s {calls}x{size}"] = n / dt
+    whole = runs[n]
+    check("[batch] every pair valid in one call",
+          bool(whole["valid"].all()),
+          f"{int(whole['valid'].sum())} of {n} valid")
+    for size in (16, 8, 1):
+        same = {k: bool(torch.equal(runs[size][k], whole[k]))
+                for k in fields}
+        dR = float((runs[size]["R"] - whole["R"]).abs().max())
+        dt = float((runs[size]["t"] - whole["t"]).abs().max())
+        check(f"[batch] {n // size} x {size} pairs against 1 x {n}",
+              all(same.values()),
+              f"bit-equal {same}; max |dR| {dR!r}, |dt| {dt!r}")
+        res[f"max_abs_dR {size}"] = dR
+
+    # the KITTI runner at --chunk 32 against phase 5's --chunk 16
+    base = phase5["base"]
+    assert base[-2:] == ["--chunk", str(SEQ_CHUNK)]
+    out, _ = _run_runner(base[:-2] + [
+        "--chunk", str(2 * SEQ_CHUNK), "--checkpoint",
+        str(tmp / "chunk32.jsonl"), "--results-dir", str(tmp / "chunk32")],
+        tag="[batch]")
+    R32, v32 = _pair_rotations(np, _ckpt_records(tmp / "chunk32.jsonl"), n)
+    ate = (out["ate_sim3"]["rmse"], phase5["out"]["ate_sim3"]["rmse"])
+    same_R = bool(np.array_equal(R32, phase5["R"]))
+    check("[batch] runner --chunk 32 against --chunk 16",
+          same_R and v32 == phase5["valid"] and ate[0] == ate[1],
+          f"per-pair R equal={same_R} (max |dR| "
+          f"{float(np.abs(R32 - phase5['R']).max())!r}), valid equal="
+          f"{v32 == phase5['valid']}, ATE sim3 RMSE {ate[0]!r} against "
+          f"{ate[1]!r}")
+    res.update(runner_chunk32_R_equal=same_R, ate_chunk32=ate[0],
+               ate_chunk16=ate[1])
+    res["phase_s"] = time.perf_counter() - t_phase
+    say(f"[batch] phase: {res['phase_s']:.1f} s")
+    return res
 
 
 def _calibration_line(np, check):
@@ -1103,10 +1314,12 @@ def _runner_phase(torch, np, card, check, tmp, keep):
     wall = time.perf_counter() - t0
     launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
     decodes = dict(image_loader.DECODES)
-    want = {k: n_chunks for k in main_path}
+    want = ({k: n_chunks for k in main_path}
+            | kernels.geometry_launches(n_chunks))
     check("[runner] launches", launches == want,
-          f"{launches} (want K1-K4 once per chunk of {SEQ_CHUNK} pairs, "
-          f"{want}, and no other kernel)")
+          f"{launches} (want K1-K4 and P1 once per chunk of {SEQ_CHUNK} "
+          f"pairs, P2 {kernels.P2_PER_CALL} times, {want}, and no other "
+          f"kernel)")
     check("[runner] native decodes",
           decodes == {"native": SEQ_FRAMES, "pil": 0},
           f"{decodes} (want all {SEQ_FRAMES} frames by the native "
@@ -1195,7 +1408,8 @@ def _runner_phase(torch, np, card, check, tmp, keep):
     ftext = buf.getvalue()
     fl = {k: n for k, n in kernels.LAUNCHES.items() if n}
     n_fb = -(-n_pairs // FALLBACK_BATCH)
-    want_fb = {k: n_chunks + n_fb for k in main_path}
+    want_fb = ({k: n_chunks + n_fb for k in main_path}
+               | kernels.geometry_launches(n_chunks + n_fb))
     recs = _ckpt_records(tmp / "fallback.jsonl")
     first = {r["pair"]: r for r in recs[:n_pairs]}
     final = {r["pair"]: r for r in recs[n_pairs:]}
@@ -1418,12 +1632,13 @@ def _vp_phase(torch, np, card, check, phase5):
             BatchProcessor.process_sequence = process_sequence
 
         n_pairs = VP_FRAMES - 1
-        want = {k: 1 for k in main_path}
+        want = {k: 1 for k in main_path} | kernels.geometry_launches(1)
         for twin, (out, text, proc, wall, launches) in runs.items():
             est, ev = out["estimated"], out["evaluation"]
             check(f"[vp {twin}] launches", launches == want,
-                  f"{launches} (want K1-K4 once for the one chunk of "
-                  f"{VP_CHUNK} pairs, and no other kernel)")
+                  f"{launches} (want K1-K4 and P1 once for the one chunk of "
+                  f"{VP_CHUNK} pairs, P2 {kernels.P2_PER_CALL} times, and "
+                  f"no other kernel)")
             check(f"[vp {twin}] every pair valid", bool(est["valid"].all())
                   and len(est["valid"]) == n_pairs,
                   f"{int(est['valid'].sum())} of {n_pairs} valid")
@@ -1666,14 +1881,15 @@ def _mesh_phase(torch, np, card, check, tmp, phase5, p5res, chunk_inputs):
         "--results-dir", str(tmp / "mesh1")], tag="[mesh]")
     wall = time.perf_counter() - t0
     ran = launched()
-    want = {k: n_chunks for k in k1_k4}
+    want = {k: n_chunks for k in k1_k4} | kernels.geometry_launches(n_chunks)
     R1, v1 = _pair_rotations(np, _ckpt_records(tmp / "mesh1.jsonl"), n_pairs)
     dR = float(np.abs(R1 - phase5["R"]).max())
     ate = (out["ate_sim3"]["rmse"], phase5["out"]["ate_sim3"]["rmse"])
     check("[mesh] runner --devices 1",
           ran == want and v1 == phase5["valid"] and dR <= 1e-5
           and abs(ate[0] - ate[1]) <= 1e-6,
-          f"launches {ran} (want K1-K4 once per chunk, {want}); valid equal"
+          f"launches {ran} (want K1-K4 and P1 once per chunk, {want}); "
+          f"valid equal"
           f"={v1 == phase5['valid']}; max |R - R without a mesh| {dR:.3g} "
           f"(<= 1e-5); ATE sim3 RMSE {ate[0]!r} against {ate[1]!r} "
           f"(within 1e-6)")
@@ -1682,53 +1898,58 @@ def _mesh_phase(torch, np, card, check, tmp, phase5, p5res, chunk_inputs):
         pairs_per_s=float(m.group(1)) if m else float("nan"), runner_s=wall,
         launches=ran, max_abs_dR=dR)
 
-    # b. BatchProcessor on the card listed twice: K1-K4 once per shard.
-    # Each shard runs 8 pairs where the run without a mesh runs 16, and on
-    # the card a batched product may take another kernel (another
-    # summation order) at another batch size, which can move a pair that
-    # RANSAC decides on a near-tie. So the mesh is held to the run without
-    # a mesh at the shard's size (chunk 8: the same frames and pairs per
-    # call), and against chunk 16 to what chunk 8 itself differs by.
+    # b. BatchProcessor on the card listed twice: K1-K4 and P1 once per
+    # shard. Each shard runs 8 pairs where the run without a mesh runs 16;
+    # a pair's pose does not depend on its batch (P1, P2), so the mesh is
+    # held to chunk 16 without a mesh as tests/test_sharding.py:182-187
+    # holds the reference (valid and inliers equal, R within 1e-5, t within
+    # 1e-4), and chunk 8 without a mesh to chunk 16 the same way.
     paths = sorted(phase5["images"].glob("*.png"))
     got = {}
-    for label, mesh, chunk in (("no mesh", None, SEQ_CHUNK),
-                               ("no mesh, chunk 8", None, SEQ_CHUNK // 2),
-                               ("[cuda:0, cuda:0]", twice, SEQ_CHUNK)):
+    for i, (label, mesh, chunk) in enumerate((
+            ("no mesh", None, SEQ_CHUNK),
+            ("no mesh, chunk 8", None, SEQ_CHUNK // 2),
+            ("[cuda:0, cuda:0]", twice, SEQ_CHUNK))):
+        ck = tmp / f"mesh_b{i}.jsonl"
         proc = BatchProcessor(phase5["images"], PoseEstimator(phase5["K"]),
-                              None, chunk=chunk, mesh=mesh)
+                              None, chunk=chunk, mesh=mesh,
+                              checkpoint_path=ck)
         kernels.reset_launches()
         with contextlib.redirect_stdout(io.StringIO()):
-            R, _, valid, _ = proc.estimate_relative_poses(
+            R, t, valid, _ = proc.estimate_relative_poses(
                 list(range(SEQ_FRAMES)), LazyFrameSource(paths))
         ran = launched()
+        last = {r["pair"]: r for r in _ckpt_records(ck)}
+        inl = np.array([last[j]["num_inliers"] for j in range(n_pairs)])
         pps = proc.meter.pairs_per_sec_per_chip() * proc.meter.n_chips
-        got[label] = (R, valid, ran)
+        got[label] = (R, t, valid, inl, ran)
         say(f"[mesh] BatchProcessor, {label}: {pps:.3f} pairs/s over "
             f"{n_pairs} pairs at chunk {chunk} ({proc.meter.n_chips} "
             f"shard(s) on one card; {card}); launches {ran}")
         res[f"batch {label}"] = dict(pairs_per_s=pps, launches=ran)
-    (R0, v0, _), (R8, v8, _), (R2, v2, ran2) = got.values()
-    d8 = np.abs(R2 - R8).max(axis=(1, 2))       # against chunk 8, per pair
-    d16 = np.abs(R2 - R0).max(axis=(1, 2))      # against chunk 16
-    d8_16 = np.abs(R8 - R0).max(axis=(1, 2))    # chunk 8 against 16
-    moved = [int(i) for i in np.nonzero(d16 > 1e-5)[0]]
-    want = {k: 2 * n_chunks for k in k1_k4}
-    check("[mesh] BatchProcessor on [cuda:0, cuda:0]",
-          ran2 == want and bool((v2 == v8).all())
-          and bool((v2 == v0).all()) and float(d8.max()) <= 1e-5
-          and bool((d16 <= d8_16 + 1e-5).all()),
-          f"launches {ran2} (want K1-K4 once per shard per chunk, {want}); "
-          f"valid equal to chunk 8's={bool((v2 == v8).all())} and chunk "
-          f"16's={bool((v2 == v0).all())}; max |R - R without a mesh at "
-          f"chunk 8| {float(d8.max()):.3g} (<= 1e-5); against chunk 16 "
-          f"pairs {moved} differ by more than 1e-5 "
-          f"({[float(d16[i]) for i in moved]}; rotation "
-          f"{[float(x) for x in rotation_error_deg(R2[moved], R0[moved])]}"
-          f" deg), no pair by more than chunk 8 differs from chunk 16 "
-          f"without a mesh ({[float(d8_16[i]) for i in moved]})")
-    res["batch_moved_vs_chunk16"] = dict(
-        pairs=moved, max_abs_dR=[float(d16[i]) for i in moved],
-        chunk8_vs_16=[float(d8_16[i]) for i in moved])
+    base = got["no mesh"]
+    want = ({k: 2 * n_chunks for k in k1_k4}
+            | kernels.geometry_launches(2 * n_chunks))
+    for label in ("[cuda:0, cuda:0]", "no mesh, chunk 8"):
+        R, t, valid, inl, ran = got[label]
+        dR = np.abs(R - base[0]).max(axis=(1, 2))
+        dt = np.abs(t - base[1]).max(axis=1)
+        same_v = bool((valid == base[2]).all())
+        same_i = bool((inl == base[3]).all())
+        moved = [int(j) for j in np.nonzero(dR > 1e-5)[0]]
+        mesh_run = label.startswith("[")
+        check(f"[mesh] BatchProcessor {label} against chunk 16",
+              same_v and same_i and float(dR.max()) <= 1e-5
+              and float(dt.max()) <= 1e-4 and (ran == want or not mesh_run),
+              (f"launches {ran} (want K1-K4 and P1 once per shard per "
+               f"chunk, {want}); " if mesh_run else "")
+              + f"valid equal={same_v}, num_inliers equal={same_i}; max "
+              f"|dR| {float(dR.max())!r} (<= 1e-5, expected 0.0), max |dt| "
+              f"{float(dt.max())!r} (<= 1e-4, expected 0.0); pairs over "
+              f"1e-5 in R: {moved}")
+        res[f"batch_vs_chunk16 {label}"] = dict(
+            max_abs_dR=float(dR.max()), max_abs_dt=float(dt.max()),
+            pairs_over_1e5=moved)
     say(f"[mesh] runner pairs/s: phase 5 without a mesh "
         f"{p5res['pairs_per_s']}, --devices 1 "
         f"{res['runner_devices_1']['pairs_per_s']}; BatchProcessor without "
@@ -1753,9 +1974,10 @@ def _mesh_phase(torch, np, card, check, tmp, phase5, p5res, chunk_inputs):
     dt = float((sh["t"] - flat["t"]).abs().max())
     check("[mesh] estimate_sequence_sharded on [cuda:0, cuda:0]",
           all(same.values()) and dR <= 1e-5 and dt <= 1e-4
-          and ran == {k: 2 for k in k1_k4},
+          and ran == {k: 2 for k in k1_k4} | kernels.geometry_launches(2),
           f"equal {same}; max |dR| {dR:.3g} (<= 1e-5), |dt| {dt:.3g} (<= "
-          f"1e-4); launches {ran} (K1-K4 once per shard)")
+          f"1e-4); launches {ran} (K1-K4 and P1 once per shard, P2 "
+          f"{kernels.P2_PER_CALL} times per shard)")
     res["sequence_sharded"] = dict(max_abs_dR=dR, max_abs_dt=dt,
                                    launches=ran)
 
@@ -1776,14 +1998,16 @@ def _mesh_phase(torch, np, card, check, tmp, phase5, p5res, chunk_inputs):
     d1 = rotation_error_deg(R2d, np.stack([o["R"].cpu().numpy()
                                            for o in one]))
     want = {"fast_harris": 1, "extract_brief": 1, "match_hamming": 1,
-            "five_point_roots": 2}
+            "five_point_roots": 2, "five_point_coeffs": 2,
+            "fixed_order_bmm": kernels.P2_PAIRS_2D}
     check("[mesh] estimate_pairs_2d on a (1, 2) mesh of the card",
           bool((v2d == v1).all()) and bool((d1[v1] < 1.0).all())
           and ran == want,
           f"valid {v2d.tolist()} estimate_pair {v1.tolist()}; rotation "
           f"difference (deg) {[round(float(x), 4) for x in d1]} (< 1); "
           f"launches {ran} (want {want}: detection and matching once, "
-          f"K4 once per hyp shard); {res['pairs_2d_ms']:.1f} ms ({card})")
+          f"K4 and P1 once per hyp shard); {res['pairs_2d_ms']:.1f} ms "
+          f"({card})")
     t0 = time.perf_counter()
     cpu = estimate_pairs_2d(frames[:2], frames[1:3], K, keys_np[:2], cfg,
                             Mesh([["cpu", "cpu"]], ("pairs", "hyp")))
@@ -2045,7 +2269,8 @@ def _profile_main_path(torch, np, estimate, cfgs, card):
         "hamming_tc_kernel<true>": "row_top2_hamming",
         "l2_tc_kernel<false>": "match_l2",
         "l2_tc_kernel<true>": "row_top2_l2", "split_kernel": "l2 split",
-        "roots_kernel": "roots", "polish_kernel": "polish"}
+        "roots_kernel": "roots", "polish_kernel": "polish",
+        "coeffs_kernel": "five_point_coeffs", "bmm_kernel": "fixed_order"}
     keys = np.stack([np.array([0, i], np.uint32) for i in range(8)])
     for name, cfg in cfgs.items():
         with profile(activities=[ProfilerActivity.CPU,
@@ -2081,11 +2306,20 @@ def _profile_main_path(torch, np, estimate, cfgs, card):
 
 def _main_path_coeffs(torch, dets, cfg, K, dev):
     """K4's input on the main path: the constraint coefficients (B * 256,
-    10, 20) of 256 minimal samples per pair of the ORB detections `dets`
-    (frames 0..B-1 against 1..B), Hamming cross-check matches and the
-    sampler's keys 0..B-1."""
-    from rpe_tpu_torch import rng
+    10, 20) of `_main_path_samples`."""
     from rpe_tpu_torch.geometry import five_point as fp
+
+    with torch.no_grad():
+        _, coeffs = fp.constraint_coeffs(
+            *_main_path_samples(torch, dets, cfg, K, dev))
+    return coeffs.reshape(-1, 10, 20).contiguous()
+
+
+def _main_path_samples(torch, dets, cfg, K, dev):
+    """P1's input on the main path: 256 minimal samples (B, 256, 5, 2) per
+    pair of the ORB detections `dets` (frames 0..B-1 against 1..B), from
+    Hamming cross-check matches and the sampler's keys 0..B-1."""
+    from rpe_tpu_torch import rng
     from rpe_tpu_torch.geometry.epipolar import normalize_points
     from rpe_tpu_torch.geometry.ransac import gather_points, \
         sample_minimal_indices
@@ -2104,9 +2338,112 @@ def _main_path_coeffs(torch, dets, cfg, K, dev):
                             for i in range(d1["xy"].shape[0])])
         idx = sample_minimal_indices(keys, mt["valid"],
                                      cfg.ransac.num_hypotheses, 5)
-        _, coeffs = fp.constraint_coeffs(gather_points(p1, idx),
-                                         gather_points(p2, idx))
-    return coeffs.reshape(-1, 10, 20).contiguous()
+        return gather_points(p1, idx), gather_points(p2, idx)
+
+
+def _record_p2(torch, run):
+    """The operands (a, b), b None for a row sum, of every P2 launch that
+    `run()` makes, copied as the launch got them, and the bytes each
+    launch must read: the distinct float32 elements its operands address,
+    an element that a and b share (A^T @ A, E^T @ E) or that a broadcast
+    repeats counted once."""
+    from rpe_tpu_torch.geometry import _products as prods
+
+    ops, reads = [], []
+    bmm, rsum = prods.fixed_order_bmm, prods.fixed_order_sum
+
+    def addresses(x):
+        off = torch.full((), x.storage_offset(), dtype=torch.int64,
+                         device=x.device)
+        for d, (n, st) in enumerate(zip(x.shape, x.stride())):
+            view = [1] * x.dim()
+            view[d] = n
+            off = off + torch.arange(n, device=x.device).view(view) * st
+        return off.reshape(-1)
+
+    def distinct(*xs):
+        by_storage = {}
+        for x in xs:
+            by_storage.setdefault(x.untyped_storage().data_ptr(), []).append(
+                addresses(x))
+        return sum(int(torch.unique(torch.cat(v)).numel())
+                   for v in by_storage.values())
+
+    def rec_bmm(a, b):
+        ops.append((a.clone(), b.clone()))
+        reads.append(4 * distinct(a, b))
+        return bmm(a, b)
+
+    def rec_sum(x):
+        ops.append((x.clone(), None))
+        reads.append(4 * distinct(x))
+        return rsum(x)
+
+    prods.fixed_order_bmm, prods.fixed_order_sum = rec_bmm, rec_sum
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        prods.fixed_order_bmm, prods.fixed_order_sum = bmm, rsum
+    return ops, reads
+
+
+def _p2_run(a, b):
+    from rpe_tpu_torch.geometry import _products as prods
+
+    return prods.fixed_order_sum(a) if b is None \
+        else prods.fixed_order_bmm(a, b)
+
+
+def _p2_plain(a, b):
+    import torch
+
+    return a.sum(-1) if b is None else torch.matmul(a, b)
+
+
+def _op_shape(op):
+    a, b = op
+    return (tuple(a.shape), None if b is None else tuple(b.shape))
+
+
+def _p2_contract(torch, ops, reads):
+    """P2 on each recorded operation against torch.matmul / .sum(-1) and
+    the float64 product (tests/torch_judges.py `p2_judge`): (all held; the
+    largest absolute difference from the plain; the largest relative
+    errors of `p2_judge`; bit-equal with the batch split in two along its
+    first axis; the bytes read (`reads`, from `_record_p2`) and written
+    once; the float operations)."""
+    from torch_judges import p2_judge
+
+    ok, err, split, nbytes, flops = True, 0.0, True, sum(reads), 0
+    rels = [0.0, 0.0, 0.0]
+    for a, b in ops:
+        got, want = _p2_run(a, b), _p2_plain(a, b)
+        if b is None:
+            exact, scale = a.double().sum(-1), a.abs().double().sum(-1)
+        else:
+            exact = torch.matmul(a.double(), b.double())
+            scale = torch.matmul(a.abs().double(), b.abs().double())
+        fine, *r = p2_judge(got, want, exact, scale)
+        ok = ok and fine
+        rels = [max(x, y) for x, y in zip(rels, r)]
+        d = (got - want).abs()
+        err = max(err, float(torch.nan_to_num(d, nan=0.0).max()))
+        n0 = got.shape[0] if got.dim() else 1
+        if n0 > 1:
+            h = n0 // 2
+
+            def cut(x, sl):
+                return x[sl] if x is not None and x.dim() == got.dim() + (
+                    b is None) and x.shape[0] == n0 else x
+
+            parts = [_p2_run(cut(a, sl), cut(b, sl))
+                     for sl in (slice(0, h), slice(h, n0))]
+            split = split and torch.equal(torch.cat(parts), got)
+        nbytes += 4 * got.numel()
+        k = a.shape[-1]
+        flops += got.numel() * (k if b is None else 2 * k)
+    return ok, err, rels, split, nbytes, flops
 
 
 def _exact_minimal_coeffs(np, torch, fp, b, dev):

@@ -22,6 +22,14 @@
 //     chart or the projective chart w = 1/z by |z|, takes the null vector
 //     of M from back-substitution on its unpivoted LU (v9 = 1), clips x, y
 //     to +-1e6, and runs 4 Gauss-Newton steps on the 10 cubic constraints.
+//     A polish that carries the root past the scanned grid -- |z| above
+//     ZKEEP, 1.2 times the grid's last |tan|, the bound of the reference's
+//     kernel contract (tests/test_pallas_kernels.py:178-184) -- has left
+//     its bracket without converging (two close roots or a pole; the
+//     residual fails the cubic system), and the root keeps its unpolished
+//     values (its bracket's midpoint and null vector), still marked as a
+//     root and flagged in `undone`. The plain version and the reference's
+//     kernel keep the polished values.
 //     It is ~3% of K4's device time (PERF.md), so it keeps this form.
 // Both kernels come from one launcher: one launch of K4 per call.
 // K5, rpe_tpu/ops/five_point_pallas.py `find_root_brackets` (its
@@ -48,6 +56,7 @@
 #define BISECT 10
 #define WARPS 4          // hypotheses (warps) per block of roots_kernel
 #define EPS 1e-20f
+#define ZKEEP 1.2e3f     // 1.2 x tan(pi/2 - 1e-3), the grid's last |tan|
 
 // Static tables as constexpr functions, so fully unrolled loops fold them.
 // group_mono(g, c): monomial index of xy-group g times z^c (-1 if none).
@@ -247,7 +256,8 @@ __global__ void polish_kernel(const float* __restrict__ coeffs,
                               const float* __restrict__ brackets,
                               float* __restrict__ xo, float* __restrict__ yo,
                               float* __restrict__ rvo, bool* __restrict__ flo,
-                              bool* __restrict__ hro, int B) {
+                              bool* __restrict__ hro, bool* __restrict__ undo,
+                              int B) {
     const int idx = blockIdx.x * blockDim.x + threadIdx.x;
     if (idx >= B * NR) return;
     const int h = idx / NR, r = idx % NR;
@@ -258,6 +268,7 @@ __global__ void polish_kernel(const float* __restrict__ coeffs,
     const bool flip = fabsf(z) > 1.f;
     flo[idx] = flip;
     hro[idx] = ok;
+    undo[idx] = false;
     if (!ok) {
         xo[idx] = 0.f;
         yo[idx] = 0.f;
@@ -306,6 +317,7 @@ __global__ void polish_kernel(const float* __restrict__ coeffs,
     }
     float x = fminf(fmaxf(v[7], -1e6f), 1e6f);
     float y = fminf(fmaxf(v[8], -1e6f), 1e6f);
+    const float x0 = x, y0 = y, rv0 = rv;
 
     for (int it = 0; it < 4; ++it) {
         float xp[4] = {1.f, x, x * x, x * x * x};
@@ -350,6 +362,13 @@ __global__ void polish_kernel(const float* __restrict__ coeffs,
         y = y + dy;
         rv = rv + dz;
     }
+    const float zabs = flip ? 1.f / fabsf(rv) : fabsf(rv);
+    if (zabs >= ZKEEP) {
+        x = x0;
+        y = y0;
+        rv = rv0;
+        undo[idx] = true;
+    }
     xo[idx] = x;
     yo[idx] = y;
     rvo[idx] = rv;
@@ -357,15 +376,15 @@ __global__ void polish_kernel(const float* __restrict__ coeffs,
 
 extern "C" int five_point_roots_launch(const float* coeffs, const float* tgrid,
                                        float* brackets, float* x, float* y,
-                                       float* rv, bool* flip, bool* has, int B,
-                                       void* stream) {
+                                       float* rv, bool* flip, bool* has,
+                                       bool* undone, int B, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (B <= 0) return 0;
     roots_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, 0, s>>>(coeffs, tgrid,
                                                                 brackets, B);
     int n = B * NR;
     polish_kernel<<<(n + 127) / 128, 128, 0, s>>>(coeffs, brackets, x, y, rv,
-                                                  flip, has, B);
+                                                  flip, has, undone, B);
     return (int)cudaGetLastError();
 }
 

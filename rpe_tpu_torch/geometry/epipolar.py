@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from ._products import matmul
 from .eig import _cross
 
 _EPS = 1e-12
@@ -30,6 +31,12 @@ def _build_epipolar_rows(pts1, pts2):
         [x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1, one], dim=-1)
 
 
+def normal_matrix(A):
+    """A^T A of rows A (..., N, 9) -> (..., 9, 9): the normal matrix of the
+    8-point and DLT least-squares fits (P2 on the card)."""
+    return matmul(A.transpose(-1, -2), A)
+
+
 def eight_point(pts1, pts2, weights=None):
     """Weighted 8-point (n-point least-squares) essential matrix: the
     smallest eigenvector of A^T W A. Returns E (..., 3, 3), ||E||_F = 1,
@@ -39,8 +46,7 @@ def eight_point(pts1, pts2, weights=None):
     A = _build_epipolar_rows(pts1, pts2)
     if weights is not None:
         A = A * weights[..., None]
-    AtA = torch.matmul(A.transpose(-1, -2), A)
-    e = smallest_eigvec_sym(AtA)
+    e = smallest_eigvec_sym(normal_matrix(A))
     return e.reshape(*e.shape[:-1], 3, 3)
 
 
@@ -56,14 +62,15 @@ def _det3(M):
 def project_to_essential(E):
     """Project E onto the essential manifold (singular values 1, 1, 0)
     through the closed-form eigendecomposition of E^T E. Returns
-    (E_proj, U, Vt), U and Vt proper rotations."""
+    (E_proj, U, Vt), U and Vt proper rotations. The products are P2's on
+    the card."""
     from .eig import eigh3x3_desc
 
-    EtE = torch.matmul(E.transpose(-1, -2), E)
+    EtE = matmul(E.transpose(-1, -2), E)
     evals, V = eigh3x3_desc(EtE)
     s = torch.sqrt(torch.clamp_min(evals, 0.0))
-    u0 = torch.matmul(E, V[..., :, 0:1])[..., 0] / (s[..., 0:1] + _EPS)
-    u1 = torch.matmul(E, V[..., :, 1:2])[..., 0] / (s[..., 1:2] + _EPS)
+    u0 = matmul(E, V[..., :, 0:1])[..., 0] / (s[..., 0:1] + _EPS)
+    u1 = matmul(E, V[..., :, 1:2])[..., 0] / (s[..., 1:2] + _EPS)
     u0 = u0 / (torch.linalg.vector_norm(u0, dim=-1, keepdim=True) + _EPS)
     u1 = u1 - (u0 * u1).sum(-1, keepdim=True) * u0
     u1 = u1 / (torch.linalg.vector_norm(u1, dim=-1, keepdim=True) + _EPS)
@@ -78,7 +85,7 @@ def project_to_essential(E):
     D = torch.zeros_like(E)
     D[..., 0, 0] = 1.0
     D[..., 1, 1] = 1.0
-    E_proj = torch.matmul(U, torch.matmul(D, Vt))
+    E_proj = matmul(U, matmul(D, Vt))
     return E_proj, U, Vt
 
 

@@ -1,13 +1,14 @@
-"""Batched 5-point essential-matrix minimal solver and the root kernels K4
+"""Batched 5-point essential-matrix minimal solver, the root kernels K4
 and K5 (port of rpe_tpu/geometry/five_point.py and the functions of
 rpe_tpu/ops/five_point_pallas.py `solve_roots_polished` and
-`find_root_brackets`).
+`find_root_brackets`) and the port's coefficient kernel P1.
 
 Hidden-variable resultant (Li & Hartley, ICPR 2006):
   1. nullspace of the 5x9 epipolar system by unrolled Householder QR ->
      E(x, y, z) = x X + y Y + z Z + W;
   2. the ten cubic constraints expanded numerically over the 20 monomials
-     of degree <= 3 with static multiplication tables;
+     of degree <= 3 with static multiplication tables (steps 1-2 are P1 on
+     the card, one launch in a batch-independent order);
   3. hiding z: M(z) m(x, y) = 0, roots where det M(z) changes sign on a
      97-point tan grid, bisected (K4, or its plain version);
   4. per root: chart choice, null vector, Gauss-Newton polish -> E.
@@ -28,6 +29,12 @@ _EPS = 1e-20
 GRID = 97           # tan-spaced determinant evaluation points
 MAX_ROOTS = 10      # degree bound of the hidden-variable determinant
 BISECT_ITERS = 10   # coarse root isolation; the polish converges
+# A root that K4's polish carries to |z| >= ZKEEP, 1.2 x the grid's last
+# |tan| (the bound of the reference kernel's contract,
+# tests/test_pallas_kernels.py:184), has left its bracket without
+# converging (two close roots or a pole); K4 undoes that polish, where the
+# plain version and the reference keep it (ROADMAP Known divergences)
+ZKEEP = 1.2e3
 
 
 def _monomials(max_deg):
@@ -344,29 +351,39 @@ def solve_roots_polished(coeffs):
     changes, 10 bisection steps each), then per root the chart choice, a
     null vector of M by back-substitution on its unpivoted LU, and a
     4-iteration Gauss-Newton polish. Outputs as `solve_roots_plain`, with
-    x, y, r_var zero where has_root is False.
+    x, y, r_var zero where has_root is False. A root that the polish
+    carries to |z| >= ZKEEP keeps its unpolished values (the bracket's
+    midpoint and its null vector), where the plain version keeps the
+    polished ones.
 
     CUDA tensors launch csrc/five_point_roots.cu; CPU tensors take the plain
     version.
     """
     if coeffs.device.type == "cpu":
         return solve_roots_plain(coeffs)
+    return _solve_roots_polished(coeffs)[:5]
+
+
+def _solve_roots_polished(coeffs):
+    """K4's outputs on CUDA coefficients and the mask (B, MAX_ROOTS) of the
+    roots whose polish it undid."""
     launch = _launchers("solve_roots_polished", coeffs)[0]
     b = coeffs.shape[0]
     n = b * MAX_ROOTS
     # one float buffer: the brackets (B, 3, MAX_ROOTS) the polish reads,
-    # then x, y, r_var; one bool buffer: flip, has_root
+    # then x, y, r_var; one bool buffer: flip, has_root, undone
     f32 = torch.empty((6, b, MAX_ROOTS), dtype=torch.float32,
                       device=coeffs.device)
-    flags = torch.empty((2, b, MAX_ROOTS), dtype=torch.bool,
+    flags = torch.empty((3, b, MAX_ROOTS), dtype=torch.bool,
                         device=coeffs.device)
     p, q = kernels.ptr(f32), kernels.ptr(flags)
     kernels.launch("five_point_roots", launch, coeffs, kernels.ptr(coeffs),
                    kernels.ptr(_device_tan_grid(coeffs.device)), p,
-                   p + 12 * n, p + 16 * n, p + 20 * n, q, q + n, b)
+                   p + 12 * n, p + 16 * n, p + 20 * n, q, q + n, q + 2 * n,
+                   b)
     _, _, _, x, y, r_var = f32.unbind(0)
-    flip, has = flags.unbind(0)
-    return x, y, r_var, flip, has
+    flip, has, undone = flags.unbind(0)
+    return x, y, r_var, flip, has, undone
 
 
 def _launchers(name, coeffs):
@@ -400,7 +417,7 @@ def _lib_launchers(lib):
         raise RuntimeError("five_point_roots.cu monomial tables disagree with "
                            "geometry/five_point.py")
     roots = lib.five_point_roots_launch
-    roots.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
+    roots.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
     roots.restype = ctypes.c_int
     brackets = lib.five_point_brackets_launch
     brackets.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int,
@@ -413,15 +430,59 @@ def _lib_launchers(lib):
 # Solver
 # ---------------------------------------------------------------------------
 
-def constraint_coeffs(pts1, pts2):
-    """Minimal samples pts (..., 5, 2) -> (null4 (..., 9, 4), row-normalized
-    constraint coefficients (..., 10, 20)): the input of K4."""
+def constraint_coeffs_plain(pts1, pts2):
+    """Plain version of P1: minimal samples pts (..., 5, 2) -> (null4
+    (..., 9, 4), row-normalized constraint coefficients (..., 10, 20)): the
+    input of K4."""
     from .epipolar import _build_epipolar_rows
 
     null4 = _householder_null4(_build_epipolar_rows(pts1, pts2))
     coeffs = _build_constraint_coeffs(null4)
     rn = torch.sqrt((coeffs * coeffs).sum(-1, keepdim=True) + _EPS)
     return null4, coeffs / rn
+
+
+def constraint_coeffs(pts1, pts2):
+    """P1: `constraint_coeffs_plain`'s function of float32 minimal samples
+    pts (..., 5, 2), computed per hypothesis in an order that does not
+    depend on the batch. CUDA tensors launch csrc/five_point_coeffs.cu;
+    CPU tensors take the plain version."""
+    if pts1.device.type == "cpu":
+        return constraint_coeffs_plain(pts1, pts2)
+    if pts1.shape != pts2.shape or pts1.shape[-2:] != (5, 2) \
+            or pts1.dtype != torch.float32 or pts2.dtype != torch.float32:
+        raise ValueError("constraint_coeffs: want two (..., 5, 2) float32")
+    batch = pts1.shape[:-2]
+    p1 = pts1.reshape(-1, 5, 2).contiguous()
+    p2 = pts2.reshape(-1, 5, 2).contiguous()
+    kernels.require_cuda("five_point_coeffs", pts1=p1, pts2=p2)
+    null4 = torch.empty((*batch, 9, 4), dtype=torch.float32,
+                        device=p1.device)
+    coeffs = torch.empty((*batch, 10, 20), dtype=torch.float32,
+                         device=p1.device)
+    kernels.launch("five_point_coeffs",
+                   _coeffs_launcher(kernels.lib("five_point_coeffs")), p1,
+                   kernels.ptr(p1), kernels.ptr(p2), kernels.ptr(null4),
+                   kernels.ptr(coeffs), p1.shape[0])
+    return null4, coeffs
+
+
+@functools.lru_cache(maxsize=None)
+def _coeffs_launcher(lib):
+    """P1's launcher with its argument types set, once per loaded library,
+    after holding the kernel's hard-coded multiplication tables to
+    `_mul_tables()`."""
+    buf = (ctypes.c_int * (160 + 800))()
+    lib.five_point_coeffs_tables(buf)
+    T1, T2 = _mul_tables()
+    want = np.concatenate([T1.reshape(-1), T2.reshape(-1)]).astype(np.int32)
+    if not np.array_equal(np.array(buf[:], dtype=np.int32), want):
+        raise RuntimeError("five_point_coeffs.cu multiplication tables "
+                           "disagree with geometry/five_point.py")
+    fn = lib.five_point_coeffs_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def five_point_essential(pts1, pts2):

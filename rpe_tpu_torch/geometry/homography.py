@@ -14,8 +14,10 @@ import math
 import torch
 
 from .. import rng
+from ._products import matmul, row_sum
 from .eig import _cross, smallest_eigvec_sym
-from .epipolar import project_to_essential, sampson_error_sq
+from .epipolar import normal_matrix, project_to_essential, \
+    sampson_error_sq
 
 _EPS = 1e-12
 
@@ -37,8 +39,7 @@ def dlt_homography(pts1, pts2, weights=None):
     A = _build_dlt_rows(pts1, pts2)
     if weights is not None:
         A = A * torch.repeat_interleave(weights, 2, dim=-1)[..., None]
-    AtA = torch.matmul(A.transpose(-1, -2), A)
-    h = smallest_eigvec_sym(AtA)
+    h = smallest_eigvec_sym(normal_matrix(A))
     return h.reshape(*h.shape[:-1], 3, 3)
 
 
@@ -109,11 +110,12 @@ def ransac_homography(key, pts1_n, pts2_n, valid_mask, threshold_n,
 
 def gric_score(d2, valid_mask, sigma2, d_dim: float, k_par: float):
     """Torr's GRIC over the last axis (lower is better): rho(e^2/sigma^2)
-    summed + d n log r + k log(r n), r = 4."""
+    summed + d n log r + k log(r n), r = 4. The float sum is P2's on the
+    card."""
     r = 4.0
     n = valid_mask.to(d2.dtype).sum(-1)
     rho = torch.clamp_max(d2 / sigma2[..., None], 2.0 * (r - d_dim))
-    return (torch.where(valid_mask, rho, 0.0).sum(-1)
+    return (row_sum(torch.where(valid_mask, rho, 0.0))
             + d_dim * n * math.log(r) + k_par * torch.log(r * n + _EPS))
 
 
@@ -129,7 +131,8 @@ def _skew(e):
 def plane_parallax_essentials(key, H, pts1_n, pts2_n, offplane_mask,
                               num_hypotheses: int = 64):
     """Essential candidates F = [e']_x H with the epipole e' pinned by pairs
-    of off-plane correspondences. Returns (E (P, Q, 3, 3), ok (P, Q))."""
+    of off-plane correspondences. Returns (E (P, Q, 3, 3), ok (P, Q)). The
+    products are P2's on the card."""
     from .ransac import gather_points, sample_minimal_indices
 
     idx = sample_minimal_indices(key, offplane_mask, num_hypotheses,
@@ -143,13 +146,13 @@ def plane_parallax_essentials(key, H, pts1_n, pts2_n, offplane_mask,
     xb1 = h1(gather_points(pts1_n, idx[..., 1]))
     xb2 = h1(gather_points(pts2_n, idx[..., 1]))
     Ht = H.transpose(-1, -2)[:, None]
-    la = _cross(torch.matmul(xa1[..., None, :], Ht)[..., 0, :], xa2)
-    lb = _cross(torch.matmul(xb1[..., None, :], Ht)[..., 0, :], xb2)
+    la = _cross(matmul(xa1[..., None, :], Ht)[..., 0, :], xa2)
+    lb = _cross(matmul(xb1[..., None, :], Ht)[..., 0, :], xb2)
     e = _cross(la, lb)
     en = torch.linalg.vector_norm(e, dim=-1)
     ok = torch.isfinite(en) & (en > 1e-9)
     e = e / (en[..., None] + _EPS)
-    F = torch.matmul(_skew(e), H[:, None])
+    F = matmul(_skew(e), H[:, None])
     E, _, _ = project_to_essential(F)
     return E, ok & torch.isfinite(E).all(-1).all(-1)
 

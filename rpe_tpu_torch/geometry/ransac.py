@@ -101,21 +101,12 @@ def local_optimization(key, E_best, inlier_mask, pts1_n, pts2_n, valid_mask,
     return E_cur, (d2b < thr2) & valid_mask
 
 
-def ransac_essential(key, pts1_n, pts2_n, valid_mask, threshold_n,
-                     num_hypotheses: int = 2048, refit_rounds: int = 2,
-                     solver: str = "8pt", degensac: bool = False,
-                     lo: bool = False):
-    """Batched-hypothesis essential-matrix RANSAC over P pairs.
-
-    key (P, 2); pts (P, N, 2) normalized coords; valid_mask (P, N);
-    threshold_n (P,) Sampson threshold in normalized units; `lo` runs
-    `local_optimization` on the winner before the refits. Returns dict
-    with E (P, 3, 3), inlier_mask (P, N), num_inliers (P,), ok (P,).
-    """
-    p, n = valid_mask.shape
-    ar = torch.arange(p, device=pts1_n.device)
-    num_valid = valid_mask.sum(-1, dtype=torch.int32)
-
+def hypotheses(key, pts1_n, pts2_n, valid_mask, num_hypotheses: int,
+               solver: str):
+    """Minimal-sample hypotheses projected to the essential manifold:
+    E_h (P, Hh, 3, 3) and hyp_ok (P, Hh), Hh = num_hypotheses * MAX_ROOTS
+    for the 5-point solver, num_hypotheses for the 8-point one."""
+    p = valid_mask.shape[0]
     if solver == "5pt":
         from .five_point import five_point_essential
 
@@ -133,26 +124,36 @@ def ransac_essential(key, pts1_n, pts2_n, valid_mask, threshold_n,
                             device=E_h.device)
     else:
         raise ValueError(f"Unknown solver: {solver}")
-
     E_h, _, _ = project_to_essential(E_h)
+    return E_h, hyp_ok
 
-    thr2 = (threshold_n * threshold_n)[:, None, None]             # (P,1,1)
+
+def score_hypotheses(E_h, hyp_ok, pts1_n, pts2_n, valid_mask, thr2):
+    """Every hypothesis against every match: inliers_h (P, Hh, N), the
+    inlier counts (P, Hh) and the truncated MSAC sums (P, Hh); thr2
+    (P, 1, 1)."""
     d2 = sampson_error_sq(E_h, pts1_n[:, None], pts2_n[:, None])  # (P,H,N)
     d2 = torch.where(torch.isfinite(d2), d2, thr2)
     inliers_h = (d2 < thr2) & valid_mask[:, None] & hyp_ok[..., None]
     counts = inliers_h.to(torch.int64).sum(-1)                    # (P, H)
-
-    # MSAC tie-break by exact rank of the truncated loss
     trunc = (torch.minimum(d2, thr2) * valid_mask[:, None]).sum(-1)
+    return inliers_h, counts, trunc
+
+
+def select_winner(E_h, inliers_h, counts, trunc, pts1_n, pts2_n):
+    """Each pair's winning hypothesis (P,) and the hypotheses' scores
+    (P, Hh): the MSAC tie-break by exact rank of the truncated loss, then a
+    lexicographic selection among the top 8 -- count, cheirality votes
+    over each hypothesis's own inliers, then the truncated loss."""
+    from ..ops.orb import top_k_stable
+    from .recover_pose import cheirality_votes
+
+    p, n = inliers_h.shape[0], inliers_h.shape[-1]
+    ar = torch.arange(p, device=E_h.device)
     hh = trunc.shape[-1]
     trunc_rank = torch.argsort(torch.argsort(trunc, dim=-1, stable=True),
                                dim=-1, stable=True)
     score = counts * hh - trunc_rank
-
-    # lexicographic selection among the top 8: count, cheirality votes
-    # over each hypothesis's own inliers, then the truncated loss
-    from ..ops.orb import top_k_stable
-    from .recover_pose import cheirality_votes
 
     k = min(8, hh)
     _, top_idx = top_k_stable(score, k)
@@ -162,7 +163,47 @@ def ransac_essential(key, pts1_n, pts2_n, valid_mask, threshold_n,
     sel = counts[arc, top_idx] * (n + 1) + votes_top
     tied_trunc = torch.where(sel == sel.amax(-1, keepdim=True),
                              trunc[arc, top_idx], torch.inf)
-    best = top_idx[ar, torch.argmin(tied_trunc, dim=-1)]
+    return top_idx[ar, torch.argmin(tied_trunc, dim=-1)], score
+
+
+def refit_round(E_best, inlier_mask, pts1_n, pts2_n, valid_mask, thr2):
+    """One least-squares refit on the current inliers, taken when it has
+    >= 8 points and keeps at least as many inliers; thr2 (P, 1)."""
+    w = inlier_mask.to(pts1_n.dtype)
+    enough = inlier_mask.sum(-1, dtype=torch.int32) >= 8
+    E_new = eight_point(pts1_n, pts2_n, weights=w)
+    E_new, _, _ = project_to_essential(E_new)
+    d2_new = sampson_error_sq(E_new, pts1_n, pts2_n)
+    mask_new = (d2_new < thr2) & valid_mask
+    better = (mask_new.sum(-1, dtype=torch.int32)
+              >= inlier_mask.sum(-1, dtype=torch.int32))
+    take = enough & better
+    return (torch.where(take[:, None, None], E_new, E_best),
+            torch.where(take[:, None], mask_new, inlier_mask))
+
+
+def ransac_essential(key, pts1_n, pts2_n, valid_mask, threshold_n,
+                     num_hypotheses: int = 2048, refit_rounds: int = 2,
+                     solver: str = "8pt", degensac: bool = False,
+                     lo: bool = False):
+    """Batched-hypothesis essential-matrix RANSAC over P pairs.
+
+    key (P, 2); pts (P, N, 2) normalized coords; valid_mask (P, N);
+    threshold_n (P,) Sampson threshold in normalized units; `lo` runs
+    `local_optimization` on the winner before the refits. Returns dict
+    with E (P, 3, 3), inlier_mask (P, N), num_inliers (P,), ok (P,).
+    """
+    p = valid_mask.shape[0]
+    ar = torch.arange(p, device=pts1_n.device)
+    num_valid = valid_mask.sum(-1, dtype=torch.int32)
+
+    E_h, hyp_ok = hypotheses(key, pts1_n, pts2_n, valid_mask,
+                             num_hypotheses, solver)
+    thr2 = (threshold_n * threshold_n)[:, None, None]             # (P,1,1)
+    inliers_h, counts, trunc = score_hypotheses(E_h, hyp_ok, pts1_n, pts2_n,
+                                                valid_mask, thr2)
+    best, score = select_winner(E_h, inliers_h, counts, trunc, pts1_n,
+                                pts2_n)
 
     E_best = E_h[ar, best]
     inlier_mask = inliers_h[ar, best]
@@ -172,17 +213,8 @@ def ransac_essential(key, pts1_n, pts2_n, valid_mask, threshold_n,
             key, E_best, inlier_mask, pts1_n, pts2_n, valid_mask, thr2)
 
     for _ in range(refit_rounds):
-        w = inlier_mask.to(pts1_n.dtype)
-        enough = inlier_mask.sum(-1, dtype=torch.int32) >= 8
-        E_new = eight_point(pts1_n, pts2_n, weights=w)
-        E_new, _, _ = project_to_essential(E_new)
-        d2_new = sampson_error_sq(E_new, pts1_n, pts2_n)
-        mask_new = (d2_new < thr2) & valid_mask
-        better = (mask_new.sum(-1, dtype=torch.int32)
-                  >= inlier_mask.sum(-1, dtype=torch.int32))
-        take = enough & better
-        E_best = torch.where(take[:, None, None], E_new, E_best)
-        inlier_mask = torch.where(take[:, None], mask_new, inlier_mask)
+        E_best, inlier_mask = refit_round(E_best, inlier_mask, pts1_n,
+                                          pts2_n, valid_mask, thr2)
 
     num_inliers = inlier_mask.sum(-1, dtype=torch.int32)
 

@@ -10,28 +10,31 @@ from __future__ import annotations
 
 import torch
 
+from ._products import matmul
 from .epipolar import project_to_essential
 
 _EPS = 1e-12
 
 
 def decompose_essential(E):
-    """E (..., 3, 3) -> (R1, R2, t): R1 = U W Vt, R2 = U W^T Vt, t = U[:, 2]."""
+    """E (..., 3, 3) -> (R1, R2, t): R1 = U W Vt, R2 = U W^T Vt, t = U[:, 2]
+    (the products P2's on the card)."""
     _, U, Vt = project_to_essential(E)
     W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
                      dtype=E.dtype, device=E.device)
-    R1 = torch.matmul(U, torch.matmul(W, Vt))
-    R2 = torch.matmul(U, torch.matmul(W.T, Vt))
+    R1 = matmul(U, matmul(W, Vt))
+    R2 = matmul(U, matmul(W.T, Vt))
     return R1, R2, U[..., :, 2]
 
 
 def triangulate_depths(R, t, pts1_n, pts2_n):
     """Midpoint-method depths (z1, z2) (..., N) of the points under pose
-    (R (..., 3, 3), t (..., 3)); pts (..., N, 2) broadcast against R."""
+    (R (..., 3, 3), t (..., 3)); pts (..., N, 2) broadcast against R. The
+    products are P2's on the card."""
     x1 = torch.cat([pts1_n, torch.ones_like(pts1_n[..., :1])], dim=-1)
     x2 = torch.cat([pts2_n, torch.ones_like(pts2_n[..., :1])], dim=-1)
-    b = torch.matmul(x2, R)                        # R^T x2, (..., N, 3)
-    c = torch.matmul(t[..., None, :], R)           # R^T t, (..., 1, 3)
+    b = matmul(x2, R)                              # R^T x2, (..., N, 3)
+    c = matmul(t[..., None, :], R)                 # R^T t, (..., 1, 3)
     a = x1
     aa = (a * a).sum(-1)
     bb = (b * b).sum(-1)

@@ -17,7 +17,10 @@ sequence of roundings as their plain PyTorch versions.
 increment it right after a launch succeeds and nowhere else. A source may
 hold more than one kernel (`KERNELS` maps each kernel to its source): K6's
 two modes count under their own names, beside K3 and K7; K12 beside K2;
-K5 beside K4; K8, K9 and K10 in one source.
+K5 beside K4; K8, K9 and K10 in one source. P1 and P2 have no TPU kernel
+of their own: they take the place of PyTorch's batched products in the
+geometry layer, whose summation order on the card depends on the batch
+(geometry/five_point.py `constraint_coeffs`, geometry/_products.py).
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ SOURCES = {
     "five_point_roots": ("five_point_roots.cu", []),
     "match_l2": ("match_l2.cu", []),
     "extract_patches": ("extract_patches.cu", ["-fmad=false"]),
+    "five_point_coeffs": ("five_point_coeffs.cu", []),
+    "fixed_order": ("fixed_order.cu", []),
 }
 
 # kernel name (as counted in LAUNCHES) -> library it launches from
@@ -58,10 +63,26 @@ KERNELS = {
     "extract_patches_moments": "extract_patches",  # K9
     "extract_patches_t": "extract_patches",    # K10
     "extract_brief_binned": "extract_brief",   # K12
+    "five_point_coeffs": "five_point_coeffs",  # P1 (port-only)
+    "fixed_order_bmm": "fixed_order",          # P2 (port-only)
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# P1 launches once per estimator call, P2 once at each of the geometry's
+# fixed-order products and sums (geometry/_products.py), a number fixed by
+# the path (tests/test_torch_batch_invariance.py counts them on the CPU)
+P2_PER_CALL = 79            # default RANSAC: 5-point, DEGENSAC, 2 refits
+P2_PER_CALL_LO = 109        # RansacConfig(lo=True)
+P2_PAIRS_2D = 147           # estimate_pairs_2d on a (1, 2) mesh: RANSAC on
+                            # each hyp shard, recover_pose once
+
+
+def geometry_launches(calls: int, p2: int = P2_PER_CALL) -> dict[str, int]:
+    """P1's and P2's launches in `calls` estimator calls."""
+    return {"five_point_coeffs": calls, "fixed_order_bmm": calls * p2}
+
 
 LAUNCHES = {name: 0 for name in KERNELS}
 PTXAS_LOG: dict[str, str] = {}

@@ -1,0 +1,243 @@
+"""A pair's pose does not depend on the batch it is estimated in.
+
+On the CPU the port's path is batch-invariant as it stands; on the card
+the geometry's batched products and sums go through P1
+(csrc/five_point_coeffs.cu) and P2 (csrc/fixed_order.cu), whose order is
+fixed by their code. These CPU tests hold:
+
+- `estimate_sequence_batched` on tests/test_torch_parallel.py's small
+  scene: R, t, `valid`, `num_inliers` and `num_matches` bit-equal for 8
+  pairs in one call, 4 + 4 and 1 x 8;
+- P1's wrapper on CPU tensors is `constraint_coeffs_plain` bit for bit,
+  which matches rpe_tpu's `_build_constraint_coeffs`; the tables
+  hard-coded in P1's source are `_mul_tables()`;
+- P2's helpers on CPU tensors are today's expressions bit for bit at each
+  call site's shapes, within 1e-6 of sum |a| |b| of a float64 product, and
+  are called as often per estimator call as ops/kernels.py states;
+- scripts/batch_invariance_probe.py's stage comparisons report 0.0.
+
+The kernels themselves are held to these plain versions on the card
+(tests/test_torch_gpu.py, chip_smoke.py).
+"""
+
+import importlib
+import importlib.util
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rpe_tpu.geometry import five_point as jfp
+from rpe_tpu.geometry.epipolar import _build_epipolar_rows as j_rows
+from rpe_tpu_torch import rng
+from rpe_tpu_torch.config import EstimatorConfig, MatcherConfig, OrbConfig, \
+    RansacConfig
+from rpe_tpu_torch.geometry import _products as prod
+from rpe_tpu_torch.geometry import five_point as tfp
+from rpe_tpu_torch.pipeline.estimator import estimate_sequence_batched
+from torch_gates import default_extraction_gates  # noqa: F401
+from torch_gates import one_torch_thread  # noqa: F401
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "rpe_tpu_torch" / "csrc"
+H, W = 96, 128
+K = np.array([[120.0, 0, 64], [0, 120.0, 48], [0, 0, 1]], np.float32)
+# tests/test_torch_parallel.py's TINY configuration
+TINY = EstimatorConfig(
+    orb=OrbConfig(nfeatures=256, nlevels=2, max_kpts=256),
+    matcher=MatcherConfig(max_matches=64),
+    ransac=RansacConfig(num_hypotheses=128))
+
+
+def _scene(n_pairs=8):
+    """tests/test_torch_parallel.py's block texture, its two halves rolled
+    at different speeds: frames (n_pairs + 1, H, W) and keys (n_pairs, 2)."""
+    g = np.random.default_rng(0)
+    base = g.uniform(0, 255, (H // 8, W // 8)).astype(np.float32)
+    base = base.repeat(8, 0).repeat(8, 1)
+    frames = []
+    for i in range(n_pairs + 1):
+        f = np.roll(base, 2 * i, axis=1)
+        f[: H // 2] = np.roll(base[: H // 2], 5 * i, axis=1)
+        frames.append(f)
+    keys = torch.stack([rng.PRNGKey(i) for i in range(n_pairs)])
+    return torch.from_numpy(np.stack(frames)), keys
+
+
+@pytest.fixture(scope="module")
+def whole():
+    imgs, keys = _scene()
+    return imgs, keys, estimate_sequence_batched(imgs, K, keys, TINY,
+                                                 device="cpu")
+
+
+@pytest.mark.parametrize("size", [4, 2, 1])
+def test_sequence_pose_bit_equal_across_splits(whole, size):
+    imgs, keys, out = whole
+    parts = [estimate_sequence_batched(imgs[a:a + size + 1], K,
+                                       keys[a:a + size], TINY, device="cpu")
+             for a in range(0, keys.shape[0], size)]
+    assert out["valid"].sum() >= 7
+    for k in ("R", "t", "valid", "num_inliers", "num_matches"):
+        assert torch.equal(out[k], torch.cat([p[k] for p in parts])), k
+
+
+def _minimal_problems(seed, b, noise=1e-3):
+    """b noisy minimal problems: (b, 5, 2) normalized point pairs."""
+    from rpe_tpu_torch.utils.synthetic import rotation_from_axis_angle
+
+    g = np.random.default_rng(seed)
+    p1s, p2s = [], []
+    for _ in range(b):
+        w = g.normal(size=3)
+        R = rotation_from_axis_angle(
+            w / np.linalg.norm(w) * np.deg2rad(g.uniform(2, 30)))
+        t = g.normal(size=3)
+        X = g.uniform([-2, -2, 3], [2, 2, 10], size=(5, 3))
+        X2 = X @ R.T + t / np.linalg.norm(t)
+        p1s.append((X / X[:, 2:3])[:, :2] + noise * g.normal(size=(5, 2)))
+        p2s.append((X2 / X2[:, 2:3])[:, :2] + noise * g.normal(size=(5, 2)))
+    return (np.stack(p1s).astype(np.float32), np.stack(p2s).astype(np.float32))
+
+
+def test_constraint_coeffs_wrapper_is_plain_on_cpu():
+    p1, p2 = _minimal_problems(3, 64)
+    t1, t2 = torch.from_numpy(p1), torch.from_numpy(p2)
+    n_w, c_w = tfp.constraint_coeffs(t1, t2)
+    n_p, c_p = tfp.constraint_coeffs_plain(t1, t2)
+    assert torch.equal(n_w, n_p) and torch.equal(c_w, c_p)
+    # the plain version against the reference's
+    A = j_rows(jnp.asarray(p1), jnp.asarray(p2))
+    n_j = jfp._householder_null4(A)
+    c_j = jfp._build_constraint_coeffs(n_j)
+    c_j = c_j / jnp.sqrt(jnp.sum(c_j * c_j, -1, keepdims=True) + 1e-20)
+    np.testing.assert_allclose(n_p.numpy(), np.asarray(n_j), atol=1e-5)
+    np.testing.assert_allclose(c_p.numpy(), np.asarray(c_j), atol=2e-5)
+    # batch shape (pairs, hypotheses) as the RANSAC calls it
+    n_b, c_b = tfp.constraint_coeffs(t1.reshape(4, 16, 5, 2),
+                                     t2.reshape(4, 16, 5, 2))
+    assert n_b.shape == (4, 16, 9, 4) and c_b.shape == (4, 16, 10, 20)
+    assert torch.equal(c_b.reshape(64, 10, 20), c_p)
+
+
+def _cu_table(src, name):
+    """The literal of table macro `name` (`#define T1_A {...}`)."""
+    m = re.search(r"#define " + name + r" \{([^}]*)\}", src)
+    return np.array([int(v) for v in
+                     m.group(1).replace("\\", " ").split(",")])
+
+
+@pytest.mark.parametrize("table", ["T1", "T2"])
+def test_p1_tables_are_the_multiplication_tables(table):
+    """The monomial tables hard-coded in csrc/five_point_coeffs.cu are
+    `_mul_tables()` (the kernel also checks this when its library loads,
+    on the card)."""
+    src = (CSRC / "five_point_coeffs.cu").read_text()
+    n_out, n_terms = (10, 2) if table == "T1" else (20, 3)
+    rows_a = _cu_table(src, table + "_A").reshape(n_out, n_terms)
+    rows_b = _cu_table(src, table + "_B").reshape(n_out, n_terms)
+    want = tfp._mul_tables()[0 if table == "T1" else 1]
+    dense = np.zeros(want.shape, np.int32).reshape(-1, 4, n_out)
+    for m, (a, b) in enumerate(zip(rows_a, rows_b)):
+        for p in range(n_terms):
+            if a[p] >= 0:
+                dense[a[p], b[p], m] = 1
+    np.testing.assert_array_equal(dense.reshape(want.shape), want)
+
+
+# (a shape, b shape) of each call site of geometry/_products.py `matmul`
+MATMUL_SITES = {
+    "normal_matrix 8-point refit": ((8, 9, 64), (8, 64, 9)),
+    "normal_matrix ambiguity": ((8, 16, 9, 64), (8, 16, 64, 9)),
+    "normal_matrix DLT samples": ((8, 64, 9, 8), (8, 64, 8, 9)),
+    "project EtE": ((8, 1280, 3, 3), (8, 1280, 3, 3)),
+    "project E v": ((8, 1280, 3, 3), (8, 1280, 3, 1)),
+    "project U D Vt": ((8, 3, 3), (8, 3, 3)),
+    "triangulate x2 R": ((8, 1, 64, 3), (8, 4, 3, 3)),
+    "triangulate t R": ((8, 16, 4, 1, 3), (8, 16, 4, 3, 3)),
+    "parallax x H^T": ((8, 64, 1, 3), (8, 1, 3, 3)),
+    "parallax [e]x H": ((8, 64, 3, 3), (8, 1, 3, 3)),
+}
+
+
+def _operands(sa, sb, seed=0):
+    g = np.random.default_rng(seed)
+    a = torch.from_numpy(g.normal(size=sa).astype(np.float32))
+    b = torch.from_numpy(g.normal(size=sb).astype(np.float32))
+    if sa[-2] == 9 and sa[-1] == sb[-2] and sa[:-2] == sb[:-2]:
+        # A^T as the sites pass it: a transposed view of the rows
+        a = b.transpose(-1, -2)
+    return a, b
+
+
+@pytest.mark.parametrize("site", sorted(MATMUL_SITES))
+def test_products_are_todays_expressions_on_cpu(site):
+    a, b = _operands(*MATMUL_SITES[site])
+    got = prod.matmul(a, b)
+    assert torch.equal(got, torch.matmul(a, b))
+    exact = torch.matmul(a.double(), b.double())
+    scale = torch.matmul(a.abs().double(), b.abs().double())
+    assert float(((got.double() - exact).abs() / scale).max()) <= 1e-6
+
+
+@pytest.mark.parametrize("shape", [(8, 64), (1, 64), (8, 9, 64)])
+def test_row_sum_is_todays_sum_on_cpu(shape):
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=shape).astype(np.float32))
+    got = prod.row_sum(x)
+    assert torch.equal(got, x.sum(-1))
+    exact = x.double().sum(-1)
+    assert float(((got.double() - exact).abs()
+                  / x.abs().double().sum(-1)).max()) <= 1e-6
+
+
+def test_probe_stages_report_zero_on_cpu():
+    spec = importlib.util.spec_from_file_location(
+        "batch_invariance_probe",
+        ROOT / "scripts" / "batch_invariance_probe.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    imgs, keys = _scene()
+    res = probe.run_probe(imgs, torch.from_numpy(K), keys, TINY, sizes=(4, 1),
+                          say=lambda _: None)
+    assert "pose" in res and "coeffs" in res and "triangulate" in res
+    moved = {k: v for k, v in res.items() if any(x != 0.0 for x in v.values())}
+    assert not moved, moved
+
+
+@pytest.mark.parametrize("path", ["orb", "lo", "pairs_2d"])
+def test_p2_launches_per_call(monkeypatch, path):
+    """ops/kernels.py's P2 counts per estimator call (the launch gates of
+    chip_smoke.py and tests/test_torch_gpu.py): the fixed-order helper
+    calls of the ORB path, of LO-RANSAC and of `estimate_pairs_2d` on a
+    (1, 2) mesh, counted on the CPU."""
+    from rpe_tpu_torch.ops import kernels
+    from rpe_tpu_torch.parallel.mesh import Mesh
+    from rpe_tpu_torch.parallel.sharded_estimator import estimate_pairs_2d
+
+    calls = [0]
+    # the modules themselves (the package re-exports a function under the
+    # name recover_pose)
+    for mod in (importlib.import_module(f"rpe_tpu_torch.geometry.{m}")
+                for m in ("epipolar", "homography", "recover_pose")):
+        for name in ("matmul", "row_sum"):
+            fn = getattr(mod, name, None)
+            if fn is getattr(prod, name):
+                def counted(*a, _fn=fn):
+                    calls[0] += 1
+                    return _fn(*a)
+                monkeypatch.setattr(mod, name, counted)
+    imgs, keys = _scene(2)
+    if path == "pairs_2d":
+        estimate_pairs_2d(imgs[:-1], imgs[1:], K, keys, TINY,
+                          Mesh([["cpu", "cpu"]], ("pairs", "hyp")))
+        assert calls[0] == kernels.P2_PAIRS_2D
+        return
+    lo = path == "lo"
+    cfg = EstimatorConfig(orb=TINY.orb, matcher=TINY.matcher,
+                          ransac=RansacConfig(num_hypotheses=128, lo=lo))
+    estimate_sequence_batched(imgs, K, keys, cfg, device="cpu")
+    assert calls[0] == (kernels.P2_PER_CALL_LO if lo else kernels.P2_PER_CALL)

@@ -35,6 +35,7 @@ from rpe_tpu_torch.pipeline.estimator import PoseEstimator, estimate_pair, \
 from rpe_tpu_torch.utils.synthetic import float_descriptors, make_sequence, \
     rotation_error_deg
 from torch_gates import default_extraction_gates  # noqa: F401
+from torch_judges import p1_judge, p2_judge
 
 pytestmark = pytest.mark.gpu
 
@@ -49,6 +50,15 @@ SIFT_B = dataclasses.replace(SIFT_A, matcher=dataclasses.replace(
 ORB_RATIO = dataclasses.replace(SMALL, matcher=dataclasses.replace(
     SMALL.matcher, cross_check=False))
 BIG = 3.0e38
+
+
+GEOMETRY = {"five_point_coeffs", "fixed_order_bmm"}   # P1, P2
+
+
+def geometry(calls, lo=False):
+    """P1's and P2's launches in `calls` estimator calls."""
+    return kernels.geometry_launches(
+        calls, kernels.P2_PER_CALL_LO if lo else kernels.P2_PER_CALL)
 
 
 @pytest.fixture(scope="module")
@@ -586,10 +596,10 @@ ORB_KERNELS = {"fast_harris", "extract_brief", "five_point_roots"}
 
 
 @pytest.mark.parametrize("cfg,expect", [
-    (SMALL, ORB_KERNELS | {"match_hamming"}),
-    (SIFT_A, {"match_l2", "five_point_roots"}),
-    (SIFT_B, {"row_top2_l2", "five_point_roots"}),
-    (ORB_RATIO, ORB_KERNELS | {"row_top2_hamming"}),
+    (SMALL, ORB_KERNELS | {"match_hamming"} | GEOMETRY),
+    (SIFT_A, {"match_l2", "five_point_roots"} | GEOMETRY),
+    (SIFT_B, {"row_top2_l2", "five_point_roots"} | GEOMETRY),
+    (ORB_RATIO, ORB_KERNELS | {"row_top2_hamming"} | GEOMETRY),
 ], ids=["orb", "sift_a", "sift_b", "orb_ratio"])
 def test_main_path_launches_every_kernel_and_agrees_with_cpu(
         scene, cuda, cfg, expect):
@@ -629,7 +639,8 @@ def test_route_paths_launch_their_kernel_and_agree_with_cpu(
     kernels.reset_launches()
     out = estimate_sequence_batched(frames, K, keys, SMALL)
     assert {k for k, n in kernels.LAUNCHES.items() if n > 0} == {
-        "fast_harris", route, "match_hamming", "five_point_roots"}, \
+        "fast_harris", route, "match_hamming",
+        "five_point_roots"} | GEOMETRY, \
         kernels.LAUNCHES
     cpu = estimate_sequence_batched(frames, K, keys, SMALL, device="cpu")
     assert torch.equal(out["valid"].cpu(), cpu["valid"])
@@ -662,6 +673,7 @@ def test_switch_paths_launch_their_kernels_and_agree_with_cpu(
     frames, K, R_gt, _ = scene
     env, want = SWITCHES[switch]
     want = want or {k: 1 for k in ORB_KERNELS | {"match_hamming"}}
+    want = want | geometry(1, lo=switch == "lo")
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     cfg = SMALL if switch != "lo" else dataclasses.replace(
@@ -718,7 +730,7 @@ def test_kitti_runner_decodes_and_estimates_on_the_card(cuda, tmp_path):
     assert image_loader.DECODES == {"native": 5, "pil": 0}
     assert {k: n for k, n in kernels.LAUNCHES.items() if n} == {
         "fast_harris": 2, "extract_brief": 2, "match_hamming": 2,
-        "five_point_roots": 2}, kernels.LAUNCHES
+        "five_point_roots": 2} | geometry(2), kernels.LAUNCHES
     assert out["n_pairs_valid"] == 4
     cpu = run_kitti_sequence.main(args + [
         "--results-dir", str(tmp_path / "cpu"),
@@ -833,9 +845,128 @@ def test_mesh_matches_the_run_without_a_mesh(scene, cuda, entries):
                                     mesh)
     torch.cuda.synchronize()
     assert {k: n for k, n in kernels.LAUNCHES.items() if n} == {
-        k: entries for k in ORB_KERNELS | {"match_hamming"}}
+        k: entries for k in ORB_KERNELS | {"match_hamming"}} | geometry(
+            entries)
     out = {k: v.reshape(2, *v.shape[2:]) for k, v in out.items()}
     assert out["R"].device == mesh.devices.flat[0]
     assert torch.equal(out["valid"], flat["valid"])
     assert torch.equal(out["num_matches"], flat["num_matches"])
     assert float((out["R"] - flat["R"]).abs().max()) <= 1e-5
+
+
+def _minimal_problems(m, seed):
+    """m minimal problems of a random rigid motion each, 5 points with
+    1e-3 noise: (m, 5, 2) x 2 on the card."""
+    from rpe_tpu_torch.utils.synthetic import rotation_from_axis_angle
+
+    g = np.random.default_rng(seed)
+    p1s, p2s = [], []
+    for _ in range(m):
+        w = g.normal(size=3)
+        R = rotation_from_axis_angle(
+            w / np.linalg.norm(w) * np.deg2rad(g.uniform(2, 30)))
+        t = g.normal(size=3)
+        X = g.uniform([-2, -2, 3], [2, 2, 10], size=(5, 3))
+        X2 = X @ R.T + t / np.linalg.norm(t)
+        p1s.append((X / X[:, 2:3])[:, :2] + 1e-3 * g.normal(size=(5, 2)))
+        p2s.append((X2 / X2[:, 2:3])[:, :2] + 1e-3 * g.normal(size=(5, 2)))
+    return (torch.from_numpy(np.stack(a).astype(np.float32)).cuda()
+            for a in (p1s, p2s))
+
+
+@pytest.mark.parametrize("m", [1, 31, 256, 2048, 4096])
+def test_coeffs_kernel_matches_plain_and_its_split(cuda, m):
+    """P1 (csrc/five_point_coeffs.cu) in one launch, held as chip_smoke.py
+    holds it (tests/torch_judges.py `p1_judge`): within 1e-5 of the
+    float64 run on every hypothesis, and of the plain version where the
+    plain float32 coefficients are within 1e-5 of their float64 run; the
+    same bits when the batch is estimated in two calls."""
+    p1, p2 = _minimal_problems(m, seed=m)
+    n0 = kernels.LAUNCHES["five_point_coeffs"]
+    null4, c = fp.constraint_coeffs(p1, p2)
+    assert kernels.LAUNCHES["five_point_coeffs"] == n0 + 1
+    _, c_p = fp.constraint_coeffs_plain(p1, p2)
+    _, c_d = fp.constraint_coeffs_plain(p1.double(), p2.double())
+    assert p1_judge(c, c_p, c_d)[0]
+    h = m // 2
+    parts = [fp.constraint_coeffs(p1[a:b], p2[a:b])
+             for a, b in ((0, h), (h, m))]
+    assert torch.equal(torch.cat([q[0] for q in parts]), null4)
+    assert torch.equal(torch.cat([q[1] for q in parts]), c)
+
+
+# (a shape, b shape) of P2's call sites at 8 pairs (geometry/_products.py
+# `matmul`): the normal matrices, project_to_essential, decompose_essential,
+# triangulate_depths and plane_parallax_essentials
+P2_SITES = {
+    "normal 8-point refit": ((8, 9, 500), (8, 500, 9)),
+    "normal ambiguity": ((8, 16, 9, 500), (8, 16, 500, 9)),
+    "normal DLT refit": ((8, 9, 1000), (8, 1000, 9)),
+    "project EtE": ((8, 2560, 3, 3), (8, 2560, 3, 3)),
+    "project E v": ((8, 2560, 3, 3), (8, 2560, 3, 1)),
+    "decompose W Vt": ((3, 3), (8, 16, 3, 3)),
+    "triangulate x2 R": ((8, 1, 1, 500, 3), (8, 16, 4, 3, 3)),
+    "triangulate t R": ((8, 4, 1, 3), (8, 4, 3, 3)),
+    "parallax x H^T": ((8, 64, 1, 3), (8, 1, 3, 3)),
+}
+
+
+@pytest.mark.parametrize("site", sorted(P2_SITES))
+def test_fixed_order_bmm_matches_matmul_and_its_split(cuda, site):
+    """P2 (csrc/fixed_order.cu) in one launch at a call site's shapes, held
+    as chip_smoke.py holds it (tests/torch_judges.py `p2_judge`: within
+    1e-6 of sum |a| |b| of the float64 product, and of torch.matmul where
+    that is as close), and the same bits when the pairs are split in two
+    calls."""
+    from rpe_tpu_torch.geometry import _products as prods
+
+    sa, sb = P2_SITES[site]
+    g = np.random.default_rng(len(site))
+    a = torch.from_numpy(g.normal(size=sa).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(g.normal(size=sb).astype(np.float32)).to(cuda)
+    n0 = kernels.LAUNCHES["fixed_order_bmm"]
+    got = prods.matmul(a, b)
+    assert kernels.LAUNCHES["fixed_order_bmm"] == n0 + 1
+    assert p2_judge(
+        got, torch.matmul(a, b), torch.matmul(a.double(), b.double()),
+        torch.matmul(a.abs().double(), b.abs().double()))[0]
+
+    def cut(x, sl):
+        return x[sl] if x.dim() == got.dim() and x.shape[0] == 8 else x
+
+    parts = [prods.matmul(cut(a, sl), cut(b, sl))
+             for sl in (slice(0, 4), slice(4, 8))]
+    assert torch.equal(torch.cat(parts), got)
+
+
+@pytest.mark.parametrize("shape", [(8, 500), (1, 500), (8, 9, 500)])
+def test_fixed_order_row_sums_match_sum_and_their_split(cuda, shape):
+    """P2's row-sum mode (gric_score's sum over the matches) against
+    .sum(-1) and the float64 sum (`p2_judge`), and split-invariant."""
+    from rpe_tpu_torch.geometry import _products as prods
+
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=shape).astype(np.float32)).to(cuda)
+    got = prods.row_sum(x)
+    assert p2_judge(got, x.sum(-1), x.double().sum(-1),
+                    x.abs().double().sum(-1))[0]
+    if shape[0] > 1:
+        assert torch.equal(torch.cat([prods.row_sum(x[:4]),
+                                      prods.row_sum(x[4:])]), got)
+
+
+def test_orb_path_pose_is_independent_of_its_batch(cuda):
+    """The ORB path at 8 pairs in one call, 4 + 4 and 1 x 8: R, t, valid,
+    num_inliers and num_matches bit-equal."""
+    frames, K, _ = make_sequence(9, 240, 480, seed=2)
+    keys = torch.stack([rng.PRNGKey(i) for i in range(8)])
+    fields = ("R", "t", "valid", "num_inliers", "num_matches")
+    whole = estimate_sequence_batched(frames, K, keys, SMALL)
+    assert bool(whole["valid"].all())
+    for size in (4, 1):
+        parts = [estimate_sequence_batched(frames[a:a + size + 1], K,
+                                           keys[a:a + size], SMALL)
+                 for a in range(0, 8, size)]
+        for k in fields:
+            assert torch.equal(torch.cat([q[k] for q in parts]), whole[k]), \
+                (size, k)

@@ -302,7 +302,66 @@ def test_every_launch_goes_through_the_device_guard():
         assert "stream_ptr(" not in text, f
         assert "kernels.check(" not in text, f
         launches += text.count("kernels.launch(")
-    assert launches == 8    # K1, K2/K12, K8-K10, K3, K7/K6-L2, K6-H, K4, K5
+    # K1, K2/K12, K8-K10, K3, K7/K6-L2, K6-H, K4, K5, P1, P2
+    assert launches == 10
+
+
+def _functions(path):
+    return {n.name: n for n in ast.walk(ast.parse(path.read_text()))
+            if isinstance(n, ast.FunctionDef)}
+
+
+def _calls(fn):
+    """Dotted names of the calls in a function's body."""
+    out = set()
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Call):
+            f, parts = node.func, []
+            while isinstance(f, ast.Attribute):
+                parts.append(f.attr)
+                f = f.value
+            if isinstance(f, ast.Name):
+                out.add(".".join([f.id] + parts[::-1]))
+    return out
+
+
+# the geometry's call sites whose products and sums P2 takes on the card,
+# by module: function -> the fixed-order helpers it must call
+FIXED_ORDER_SITES = {
+    "epipolar.py": {"normal_matrix": {"matmul"},
+                    "project_to_essential": {"matmul"}},
+    "recover_pose.py": {"decompose_essential": {"matmul"},
+                        "triangulate_depths": {"matmul"}},
+    "homography.py": {"plane_parallax_essentials": {"matmul"},
+                      "gric_score": {"row_sum"}},
+}
+
+
+def test_fixed_order_sites_reach_their_kernels():
+    """On the card branch `constraint_coeffs` launches P1 and each site
+    whose order moved with the batch calls geometry/_products.py, whose
+    helpers launch P2; no bare torch.matmul or torch.einsum is left in
+    them."""
+    geo = ROOT / "rpe_tpu_torch" / "geometry"
+    bare = {"torch.matmul", "torch.einsum", "torch.bmm"}
+    cc = _functions(geo / "five_point.py")["constraint_coeffs"]
+    assert "kernels.launch" in _calls(cc) and not _calls(cc) & bare
+    for module, sites in FIXED_ORDER_SITES.items():
+        tree = ast.parse((geo / module).read_text())
+        helpers = {a.name for n in ast.walk(tree)
+                   if isinstance(n, ast.ImportFrom) and n.level == 1
+                   and n.module == "_products" for a in n.names}
+        fns = _functions(geo / module)
+        for name, need in sites.items():
+            calls = _calls(fns[name])
+            assert need <= calls and need <= helpers, (module, name)
+            assert not calls & bare, (module, name, calls & bare)
+    prod = _functions(geo / "_products.py")
+    assert "fixed_order_bmm" in _calls(prod["matmul"])
+    assert "fixed_order_sum" in _calls(prod["row_sum"])
+    for name in ("fixed_order_bmm", "fixed_order_sum"):
+        assert "_launch" in _calls(prod[name])
+    assert "kernels.launch" in _calls(prod["_launch"])
 
 
 class _FakeCudaTensor:
