@@ -40,11 +40,20 @@ Phases (any failure exits non-zero before the final line):
      than the plain float32 one + 1e-6, bit-equal split in two calls) and
      P2 on every product and sum it takes in one ORB call (within 1e-6 of
      sum |a| |b| of torch.matmul / .sum, bit-equal split in two), each
-     timed with its bound, P2 beside torch.matmul / .sum;
+     timed with its bound, P2 beside torch.matmul / .sum; P3 (SIFT's
+     orientation histogram) and P4 (its descriptor) on every octave's
+     inputs of one SIFT A chunk's detection (tests/torch_judges.py
+     `p3_judge`: each bin within 1e-6 of its terms' magnitudes of the plain
+     version and of a float64 run, slots where a sample's bin differs
+     from the plain version's counted and capped at 1 per 1000, and held
+     within the moved samples' magnitudes; `p4_judge`: within 1e-5 of both
+     on every slot), each bit-equal with its frames and with its slots
+     split in two, timed per chunk (5 launches) with its bound;
   4. paths: `estimate_sequence_batched` on the 9 frames (8 pairs) at
      EstimatorConfig() (ORB, Hamming cross-check: K1-K4), SIFT with L2
-     cross-check (config A: K7, K4), SIFT with the L2 Lowe ratio test
-     (config B: K6-L2, K4), and ORB with the Hamming ratio test (K1, K2,
+     cross-check (config A: K7, K4, P3 and P4 once per octave), SIFT with
+     the L2 Lowe ratio test (config B: K6-L2, K4, P3, P4), and ORB with
+     the Hamming ratio test (K1, K2,
      K6-Hamming, K4), then the ORB path under four of the reference's
      extraction gate settings, each taking K12, K10, K9 or K8 in K2's place
      (set in the process for that path, restored after it), then the ORB
@@ -124,9 +133,14 @@ Phases (any failure exits non-zero before the final line):
      1 x 32: R, t, `valid`, `num_inliers` and `num_matches` bit-equal,
      each split launching K1-K4 and P1 once per call; the KITTI runner on
      phase 5's PNGs at --chunk 32 against phase 5's --chunk 16: per-pair R,
-     `valid` and the ATE equal.
+     `valid` and the ATE equal; SIFT A on the same frames at the same
+     splits (detections and poses bit-equal, K7, K4, P1 once per call, P3
+     and P4 once per octave per call) and SIFT B at 32 against 8 x 4; the
+     simulator runner with --feature SIFT on phase 6's room at --chunk 16
+     and --chunk 8: per-pair R and `valid` equal, K7, K4, P1-P4 per chunk.
 Every path's launch gate counts P1 once and P2 `P2_PER_CALL` times per
-estimator call (`P2_PER_CALL_LO` under LO-RANSAC; rpe_tpu_torch/ops/
+estimator call (`P2_PER_CALL_LO` under LO-RANSAC), and a SIFT path P3 and
+P4 once per octave of its frames (`sift_launches`; rpe_tpu_torch/ops/
 kernels.py).
 The line before the last is the kernel JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -179,6 +193,13 @@ VP_ROT_GT_DEG = 2.0         # max rotation error of a pair vs the scene
 # 2290, the degree-2 products 956, the constraints 3880, norms and
 # division 610) and its bytes (pts1, pts2 in; null4, coeffs out)
 P1_OPS, P1_BYTES = 7761, 80 + (36 + 200) * 4
+# P3's and P4's float operations per sample of the 24 x 24 grid (each
+# gradient plane's bilinear sample 7, magnitude 4, angle 2, bin 3, window
+# 1, histogram 1: P3 25; P4 adds the rotated bin coordinates 16, the three
+# trilinear splits 9, the orientation weights 2 and its up to 8 outputs'
+# products and sums 20: 70) and per P4 slot (the two norms and
+# divisions, 4 per output)
+P3_OPS_PER_SAMPLE, P4_OPS_PER_SAMPLE, P4_OPS_PER_SLOT = 25, 70, 512
 
 
 def fail(msg: str) -> None:
@@ -939,7 +960,18 @@ def main() -> None:
         lambda: [_p2_run(*o) for o in ops])
     device["fixed_order_bmm"] = device_ms(
         lambda: [_p2_run(*o) for o in ops], "bmm_kernel")
-    del flush, ops
+    del ops
+
+    # P3, P4 -- every octave's inputs of one SIFT A chunk's detection (the
+    # 9 frames), recorded from it; held by tests/torch_judges.py
+    # `p3_judge` and `p4_judge`, bit-equal with the frames and with the
+    # slots split in two, timed as the chunk's 5 launches of each
+    ori_calls, desc_calls = _record_sift(
+        torch, lambda: detect_features(imgs, cfg_a))
+    rows.update(_sift_rows(torch, ori_calls, desc_calls, check, dict(
+        cuda_ms=cuda_ms, queued_ms=queued_ms, device_ms=device_ms,
+        bound=bound, queued=queued, device=device), card))
+    del flush, ori_calls, desc_calls
 
     for r in rows.values():
         lib = ("none: no single PyTorch call computes it"
@@ -961,10 +993,12 @@ def main() -> None:
     # environment, whether the bits must equal the default route's)
     paths = [
         ("ORB cross-check", cfg, orb_k, {}, False),
-        ("SIFT A (L2 cross-check)", cfg_a, ("match_l2", "five_point_roots"),
-         {}, False),
-        ("SIFT B (L2 ratio)", cfg_b, ("row_top2_l2", "five_point_roots"), {},
-         False),
+        ("SIFT A (L2 cross-check)", cfg_a,
+         {"match_l2": 1, "five_point_roots": 1}
+         | kernels.sift_launches(H, W, cfg_a.sift), {}, False),
+        ("SIFT B (L2 ratio)", cfg_b,
+         {"row_top2_l2": 1, "five_point_roots": 1}
+         | kernels.sift_launches(H, W, cfg_b.sift), {}, False),
         ("ORB ratio", cfg_orb_ratio,
          orb + ("row_top2_hamming", "five_point_roots"), {}, False),
     ]
@@ -1083,8 +1117,9 @@ def main() -> None:
             torch, np, card, check, Path(seq_dir), phase5)
 
         # ---- 6. VP refinement and the dataset runners -----------------------
+        room = Path(seq_dir) / "room"
         summary["vp runners"] = _vp_phase(torch, np, card, check,
-                                          summary["sequence runner"])
+                                          summary["sequence runner"], room)
 
         # ---- 7. multi-device: meshes on the one card ------------------------
         summary["multi-device"] = _mesh_phase(
@@ -1093,7 +1128,7 @@ def main() -> None:
 
         # ---- 8. batch invariance --------------------------------------------
         summary["batch invariance"] = _batch_phase(
-            torch, np, card, check, Path(seq_dir), phase5)
+            torch, np, card, check, Path(seq_dir), phase5, room)
 
     if "--profile" in sys.argv:
         _profile_main_path(torch, np, estimate_sequence_batched,
@@ -1113,12 +1148,13 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def _batch_phase(torch, np, card, check, tmp, phase5):
+def _batch_phase(torch, np, card, check, tmp, phase5, room):
     """Phase 8 (module docstring): a pair's pose does not depend on the
     batch it is estimated in. Returns the numbers it printed."""
-    from rpe_tpu_torch.config import EstimatorConfig
+    from rpe_tpu_torch.config import EstimatorConfig, MatcherConfig
     from rpe_tpu_torch.ops import kernels
-    from rpe_tpu_torch.pipeline.estimator import estimate_sequence_batched
+    from rpe_tpu_torch.pipeline.estimator import detect_features, \
+        estimate_sequence_batched
     from rpe_tpu_torch.utils.synthetic import make_sequence
 
     t_phase = time.perf_counter()
@@ -1181,9 +1217,271 @@ def _batch_phase(torch, np, card, check, tmp, phase5):
           f"{ate[1]!r}")
     res.update(runner_chunk32_R_equal=same_R, ate_chunk32=ate[0],
                ate_chunk16=ate[1])
+
+    # SIFT A at every split, SIFT B at 32 against 8 x 4: detections, poses
+    # and launches
+    cfg_a = EstimatorConfig(feature_method="SIFT",
+                            matcher=MatcherConfig(norm_type="l2"))
+    cfg_b = EstimatorConfig(feature_method="SIFT", matcher=MatcherConfig(
+        norm_type="l2", cross_check=False))
+    for label, scfg, sizes, matcher in (
+            ("SIFT A", cfg_a, (n, 16, 8, 1), "match_l2"),
+            ("SIFT B", cfg_b, (n, 8), "row_top2_l2")):
+        sruns = {}
+        for size in sizes:
+            calls = -(-n // size)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            outs = [estimate_sequence_batched(imgs[a:a + size + 1], K,
+                                              keys[a:a + size], scfg)
+                    for a in range(0, n, size)]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            ran = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            sruns[size] = {k: torch.cat([o[k] for o in outs])
+                           for k in fields}
+            want = ({matcher: calls, "five_point_roots": calls}
+                    | kernels.geometry_launches(calls)
+                    | kernels.sift_launches(H, W, scfg.sift, calls))
+            check(f"[batch {label}] {calls} x {size} pairs launches",
+                  ran == want, f"{ran} (want {want})")
+            say(f"[batch {label}] {calls} x {size} pairs: {n / dt:.3f} "
+                f"pairs/s ({card})")
+            res[f"{label} pairs_per_s {calls}x{size}"] = n / dt
+        whole = sruns[n]
+        say(f"[batch {label}] one call of {n}: {int(whole['valid'].sum())} "
+            f"valid, matches {whole['num_matches'].cpu().tolist()}")
+        for size in sizes[1:]:
+            same = {k: bool(torch.equal(sruns[size][k], whole[k]))
+                    for k in fields}
+            dR = float((sruns[size]["R"] - whole["R"]).abs().max())
+            dm = int((sruns[size]["num_matches"] - whole["num_matches"])
+                     .abs().max())
+            check(f"[batch {label}] {n // size} x {size} pairs against 1 x "
+                  f"{n}", all(same.values()),
+                  f"bit-equal {same}; max |dR| {dR!r}, |d matches| {dm}")
+            res[f"{label} max_abs_dR {size}"] = dR
+    with torch.no_grad():
+        dets = detect_features(imgs, cfg_a)
+        for size in (16, 8, 1):
+            same = True
+            for a in range(0, n, size):
+                sl = slice(a, min(a + size, n) + 1)
+                part = detect_features(imgs[sl], cfg_a)
+                same &= all(torch.equal(dets[k][sl], part[k]) for k in dets)
+            check(f"[batch SIFT A] detections of {size}-pair chunks "
+                  f"against one call", same,
+                  f"xy, angle, level, score, desc, valid bit-equal={same}")
+    del dets
+
+    # the simulator runner with --feature SIFT on phase 6's room
+    res["sift runner"] = _sift_runner_chunks(torch, np, check, tmp, room,
+                                             card)
     res["phase_s"] = time.perf_counter() - t_phase
     say(f"[batch] phase: {res['phase_s']:.1f} s")
     return res
+
+
+def _sift_runner_chunks(torch, np, check, tmp, room, card):
+    """Phase 8's simulator runner with --feature SIFT on phase 6's room at
+    --chunk 16 and --chunk 8: per-pair R and `valid` equal, K7, K4 and P1
+    once per chunk, P2 79 times, P3 and P4 once per octave."""
+    import io
+
+    from rpe_tpu_torch.cli import run_simulator_data
+    from rpe_tpu_torch.config import SiftConfig
+    from rpe_tpu_torch.ops import kernels
+
+    got = {}
+    n_pairs = VP_FRAMES - 1
+    for chunk in (16, 8):
+        calls = -(-n_pairs // chunk)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = run_simulator_data.main(
+                ["--data-root", str(room), "--results-dir",
+                 str(tmp / f"sift_chunk{chunk}"), "--step", "1", "--chunk",
+                 str(chunk), "--no-video", "--feature", "SIFT"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ran = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        want = ({"match_l2": calls, "five_point_roots": calls}
+                | kernels.geometry_launches(calls)
+                | kernels.sift_launches(H, W, SiftConfig(), calls))
+        check(f"[batch SIFT runner] --chunk {chunk} launches", ran == want,
+              f"{ran} (want {want})")
+        est = out["estimated"]
+        got[chunk] = (np.stack(est["R"]), [bool(v) for v in est["valid"]])
+        say(f"[batch SIFT runner] --chunk {chunk}: {sum(got[chunk][1])} of "
+            f"{n_pairs} pairs valid, {wall:.2f} s with VP ({card})")
+    same_R = bool(np.array_equal(got[16][0], got[8][0]))
+    check("[batch SIFT runner] --chunk 8 against --chunk 16",
+          same_R and got[16][1] == got[8][1],
+          f"per-pair R equal={same_R} (max |dR| "
+          f"{float(np.abs(got[16][0] - got[8][0]).max())!r}), valid equal="
+          f"{got[16][1] == got[8][1]}")
+    return dict(R_equal=same_R, valid=got[16][1])
+
+
+def _record_sift(torch, run):
+    """The arguments of every P3 (`orientation_hist`) and P4
+    (`descriptor`) call that run() makes, octave by octave."""
+    from rpe_tpu_torch.ops import sift
+
+    ori_calls, desc_calls = [], []
+    ori, desc = sift.orientation_hist, sift.descriptor
+
+    def rec_ori(*a):
+        ori_calls.append(a)
+        return ori(*a)
+
+    def rec_desc(*a):
+        desc_calls.append(a)
+        return desc(*a)
+
+    sift.orientation_hist, sift.descriptor = rec_ori, rec_desc
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        sift.orientation_hist, sift.descriptor = ori, desc
+    return ori_calls, desc_calls
+
+
+def _sampled_px(torch, ucx, ucy, radius, lin, py, px):
+    """The pixels each slot's bilinear taps read in one gradient plane:
+    the distinct rows {y0, y0 + 1} times the distinct columns of its grid
+    (ops/sift.py `_sep_weights`), (F, Q) int64."""
+    def distinct(u, p):
+        u0 = torch.floor(u.clamp(1.0, p - 2.001))
+        v = torch.sort(torch.cat([u0, u0 + 1], -1), -1).values
+        return 1 + (v[..., 1:] != v[..., :-1]).sum(-1)
+
+    lin = torch.from_numpy(lin).to(ucx.device)
+    return (distinct(ucy[..., None] + lin * radius[..., None], py)
+            * distinct(ucx[..., None] + lin * radius[..., None], px))
+
+
+def _sift_rows(torch, ori_calls, desc_calls, check, t, card):
+    """Phase 3's P3 and P4 rows (module docstring) on the recorded inputs
+    of one chunk's detection, octave by octave."""
+    import math
+
+    from torch_judges import p3_judge, p3_references, p4_judge
+
+    from rpe_tpu_torch.ops import sift
+
+    dev = ori_calls[0][0].device
+    tables = sift._device_tables(dev).numel() * 4
+    lin_o, _, lin_d = sift._grid_tables()
+    ns = sift._ORI_GRID * sift._ORI_GRID
+    p3_err = p4_err = 0.0
+    p3_bytes = p4_bytes = tables
+    p3_ops = p4_ops = 0.0
+    for o, (a, d) in enumerate(zip(ori_calls, desc_calls)):
+        gxp, gyp, ucx, ucy, scl = a
+        f, q, py, px = gxp.shape
+        h = sift.orientation_hist(*a)
+        hk, _, _, bins_k = sift.orientation_hist(*a, detail=True)
+        ok, info = p3_judge(hk, bins_k, p3_references(*a))
+        fh, qh = f // 2, q // 2
+        split_f = torch.equal(torch.cat([sift.orientation_hist(
+            *(x[:fh] for x in a)), sift.orientation_hist(
+            *(x[fh:] for x in a))]), h)
+        split_q = torch.equal(torch.cat([sift.orientation_hist(
+            *(x[:, :qh] for x in a)), sift.orientation_hist(
+            *(x[:, qh:] for x in a))], 1), h)
+        p3_err = max(p3_err, float((h - sift.orientation_hist_plain(*a))
+                                   .abs().max()))
+        check(f"P3 sift_orientation_hist (octave {o}, {f} x {q} slots of "
+              f"{py}x{px} patches)",
+              ok and torch.equal(h, hk) and split_f and split_q,
+              f"{info}; relative to the bins' terms' magnitudes: kernel "
+              f"against float64 {info['rel_kernel_f64']:.3e} (<= 1e-6), "
+              f"against plain {info['rel_kernel_plain']:.3e}; slots where a "
+              f"sample's bin differs: {info['flipped_plain']} against the "
+              f"plain (<= {info['cap']}, 1 per 1000), {info['flipped_f64']} "
+              f"against float64, each within its moved samples' "
+              f"magnitudes={info['flipped_within_bound']}; detail mode equal="
+              f"{bool(torch.equal(h, hk))}; bit-equal split frames "
+              f"{fh} + {f - fh}={split_f}, slots {qh} + {q - qh}={split_q}")
+        rad = scl * 4.5
+        n_px = _sampled_px(torch, ucx, ucy, rad, lin_o, py, px)
+        p3_bytes += int(n_px.sum()) * 8 + f * q * (3 + 36) * 4
+        p3_ops += f * q * ns * P3_OPS_PER_SAMPLE
+
+        gxp, gyp, pidx, sx, sy, ss, theta = d
+        qd = pidx.shape[1]
+        k = sift.descriptor(*d)
+        kd = sift.descriptor(*d, detail=True)[0]
+        plain = sift.descriptor_plain(sift._take(gxp, pidx),
+                                      sift._take(gyp, pidx), sx, sy, ss,
+                                      theta)
+        f64 = sift.descriptor_plain(
+            sift._take(gxp.double(), pidx), sift._take(gyp.double(), pidx),
+            sx.double(), sy.double(), ss.double(), theta.double())
+        ok, e_kp, e_kd, e_pd = p4_judge(k, plain, f64)
+        del f64
+        split_f = torch.equal(torch.cat([sift.descriptor(
+            *(x[:fh] for x in d)), sift.descriptor(*(x[fh:] for x in d))]), k)
+        qh = qd // 2
+        split_q = torch.equal(torch.cat([sift.descriptor(
+            gxp, gyp, *(x[:, :qh] for x in d[2:])), sift.descriptor(
+            gxp, gyp, *(x[:, qh:] for x in d[2:]))], 1), k)
+        p4_err = max(p4_err, e_kp)
+        check(f"P4 sift_descriptor (octave {o}, {f} x {qd} slots of "
+              f"{py}x{px} patches)",
+              ok and torch.equal(k, kd) and split_f and split_q,
+              f"max |kernel - plain| {e_kp:.3e}, |kernel - float64| "
+              f"{e_kd:.3e} (each <= 1e-5 on every slot), |plain - float64| "
+              f"{e_pd:.3e}; detail mode equal={bool(torch.equal(k, kd))}; "
+              f"bit-equal split frames {fh} + {f - fh}={split_f}, slots "
+              f"{qh} + {qd - qh}={split_q}")
+        # a source patch (a keypoint and its secondary orientation) counts
+        # once: both read the same pixels
+        src, inv = torch.unique(torch.arange(f, device=dev)[:, None] * q
+                                + pidx, return_inverse=True)
+        rad = ss * 3.0 * math.sqrt(2.0) * 5 * 0.5
+        n_px = _sampled_px(torch, sx, sy, rad, lin_d, py, px).reshape(-1)
+        once = torch.zeros(src.numel(), dtype=n_px.dtype, device=dev)
+        once.scatter_(0, inv.reshape(-1), n_px)
+        p4_bytes += int(once.sum()) * 8 + f * qd * (4 * 4 + 8 + 128 * 4)
+        p4_ops += f * qd * (ns * P4_OPS_PER_SAMPLE + P4_OPS_PER_SLOT)
+
+    rows = {}
+    for name, calls, kern, plain_fn, err, nbytes, ops, frag, line in (
+            ("sift_orientation_hist", ori_calls, sift.orientation_hist,
+             sift.orientation_hist_plain, p3_err, p3_bytes, p3_ops,
+             "ori_hist_kernel", 421),
+            ("sift_descriptor", desc_calls, sift.descriptor,
+             lambda g, gy, i, *r: sift.descriptor_plain(
+                 sift._take(g, i), sift._take(gy, i), *r),
+             p4_err, p4_bytes, p4_ops, "desc_kernel", 502)):
+        def run(calls=calls, kern=kern):
+            return [kern(*a) for a in calls]
+
+        b_ms, b_by = t["bound"](nbytes, ops, FP32_OPS_PER_S)
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="rpe_tpu_torch/csrc/sift_sample.cu",
+            # port-only: no Pallas kernel; the reference's XLA code
+            replaces=f"rpe_tpu/ops/sift.py:{line}", max_abs_err=err,
+            ms=t["cuda_ms"](run),
+            plain_ms=t["cuda_ms"](lambda calls=calls, fn=plain_fn:
+                                  [fn(*a) for a in calls], iters=3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        t["queued"][name] = t["queued_ms"](run)
+        t["device"][name] = t["device_ms"](run, frag)
+        first, last = calls[0], calls[-1]
+        say(f"{name}: octave 0 {tuple(first[0].shape)} "
+            f"{t['cuda_ms'](lambda: kern(*first)):.4f} ms, last octave "
+            f"{tuple(last[0].shape)} {t['cuda_ms'](lambda: kern(*last)):.4f}"
+            f" ms (flushed); bytes read and written once {nbytes} (the "
+            f"sampled pixels of each source patch, {card})")
+    return rows
 
 
 def _calibration_line(np, check):
@@ -1531,10 +1829,11 @@ def _runner_phase(torch, np, card, check, tmp, keep):
     return res
 
 
-def _vp_phase(torch, np, card, check, phase5):
+def _vp_phase(torch, np, card, check, phase5, room):
     """Phase 6 (module docstring): VP refinement through the simulator
     runner, both twins, the CPU cross-check, the single-pair entry points
-    and the VP stage's times. Returns the numbers it printed."""
+    and the VP stage's times; the room's frames are written under `room`
+    (phase 8 runs them again). Returns the numbers it printed."""
     import io
 
     from torch.profiler import ProfilerActivity, profile
@@ -1602,7 +1901,7 @@ def _vp_phase(torch, np, card, check, phase5):
         frames, K, S, yaw, centres = manhattan_sequence(
             VP_FRAMES, H, W, seed=0,
             K=CameraCalibration().get_matrix(W, H), **GATED_ROOM)
-        data = tmp / "evaluation-runs/simulator-data/data"
+        data = room / "evaluation-runs/simulator-data/data"
         write_dataset(data, frames, yaw, centres)
         small = tmp / "cpu"
         write_dataset(small / "evaluation-runs/simulator-data/data",
@@ -1618,7 +1917,7 @@ def _vp_phase(torch, np, card, check, phase5):
                 torch.cuda.synchronize()
                 kernels.reset_launches()
                 out, text = run(run_simulator_data.main,
-                                ["--data-root", str(tmp), "--results-dir",
+                                ["--data-root", str(room), "--results-dir",
                                  str(tmp / twin)] + argv, env=env)
                 torch.cuda.synchronize()
                 launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
@@ -2262,6 +2561,7 @@ def _profile_main_path(torch, np, estimate, cfgs, card):
             say(f"profile: {name} B={b} chunk ms "
                 f"{[round(t * 1e3, 2) for t in times]} -> median "
                 f"{b / float(np.median(times)):.2f} pairs/s ({card})")
+    _sift_peak_memory(torch, estimate, frames, K, cfgs, card)
     # kernel name fragment (as the profiler shows it) -> table label
     ours_by_name = {
         "fast_harris_kernel": "fast_harris", "extract_brief_kernel":
@@ -2270,7 +2570,9 @@ def _profile_main_path(torch, np, estimate, cfgs, card):
         "l2_tc_kernel<false>": "match_l2",
         "l2_tc_kernel<true>": "row_top2_l2", "split_kernel": "l2 split",
         "roots_kernel": "roots", "polish_kernel": "polish",
-        "coeffs_kernel": "five_point_coeffs", "bmm_kernel": "fixed_order"}
+        "coeffs_kernel": "five_point_coeffs", "bmm_kernel": "fixed_order",
+        "ori_hist_kernel": "sift_orientation_hist",
+        "desc_kernel": "sift_descriptor"}
     keys = np.stack([np.array([0, i], np.uint32) for i in range(8)])
     for name, cfg in cfgs.items():
         with profile(activities=[ProfilerActivity.CPU,
@@ -2302,6 +2604,49 @@ def _profile_main_path(torch, np, estimate, cfgs, card):
             f.write("\n\n" + ka.table(sort_by="cpu_time_total", row_limit=30))
         for line in table.splitlines()[:14]:
             say(f"profile[{name}]| {line}")
+
+
+def _sift_peak_memory(torch, estimate, frames, K, cfgs, card):
+    """--profile: peak device memory and host-clock time of one SIFT chunk
+    (B = 8) per SIFT config with P3 and P4, and with their plain versions
+    (one-hot products, gathered patches) in their place, in turns: kernels,
+    plain, plain, kernels."""
+    import numpy as np
+
+    from rpe_tpu_torch.ops import sift
+
+    keys = np.stack([np.array([0, i], np.uint32) for i in range(8)])
+    kern = sift.orientation_hist, sift.descriptor
+
+    def plain_ori(*a, detail=False):
+        return sift.orientation_hist_plain(*a, detail)
+
+    def plain_desc(gxp, gyp, pidx, *r, detail=False):
+        return sift.descriptor_plain(sift._take(gxp, pidx),
+                                     sift._take(gyp, pidx), *r, detail)
+
+    for name, cfg in cfgs.items():
+        if cfg.feature_method != "SIFT":
+            continue
+        got = {"kernels": [], "plain": []}
+        for mode in ("kernels", "plain", "plain", "kernels"):
+            sift.orientation_hist, sift.descriptor = (
+                kern if mode == "kernels" else (plain_ori, plain_desc))
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                estimate(frames[:9], K, keys, cfg)
+                torch.cuda.synchronize()
+                got[mode].append((torch.cuda.max_memory_allocated() / 2**30,
+                                  (time.perf_counter() - t0) * 1e3))
+            finally:
+                sift.orientation_hist, sift.descriptor = kern
+        say(f"profile: {name} B=8 peak device memory and chunk ms: P3/P4 "
+            f"{[(round(g, 3), round(t, 1)) for g, t in got['kernels']]}, "
+            f"their plain versions "
+            f"{[(round(g, 3), round(t, 1)) for g, t in got['plain']]} "
+            f"(GiB, ms; the first run of each after the other's; {card})")
 
 
 def _main_path_coeffs(torch, dets, cfg, K, dev):

@@ -11,7 +11,9 @@ source is not rebuilt within a checkout.
 No `--use_fast_math`: BRIEF rounding and the 5-point sign tests rely on IEEE
 `sqrtf`, division and `rintf`. The FAST/Harris and extraction kernels also
 turn off FMA contraction (`-fmad=false`) so their arithmetic is the same
-sequence of roundings as their plain PyTorch versions.
+sequence of roundings as their plain PyTorch versions, and so does SIFT's
+(P3, P4), whose only difference from its plain version is then the order
+and precision of its sums.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made; the wrappers
 increment it right after a launch succeeds and nowhere else. A source may
@@ -20,7 +22,9 @@ two modes count under their own names, beside K3 and K7; K12 beside K2;
 K5 beside K4; K8, K9 and K10 in one source. P1 and P2 have no TPU kernel
 of their own: they take the place of PyTorch's batched products in the
 geometry layer, whose summation order on the card depends on the batch
-(geometry/five_point.py `constraint_coeffs`, geometry/_products.py).
+(geometry/five_point.py `constraint_coeffs`, geometry/_products.py); P3
+and P4 likewise take the place of SIFT's sampling matmuls, histograms and
+norms (ops/sift.py `orientation_hist`, `descriptor`).
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ SOURCES = {
     "extract_patches": ("extract_patches.cu", ["-fmad=false"]),
     "five_point_coeffs": ("five_point_coeffs.cu", []),
     "fixed_order": ("fixed_order.cu", []),
+    "sift_sample": ("sift_sample.cu", ["-fmad=false"]),
 }
 
 # kernel name (as counted in LAUNCHES) -> library it launches from
@@ -65,6 +70,8 @@ KERNELS = {
     "extract_brief_binned": "extract_brief",   # K12
     "five_point_coeffs": "five_point_coeffs",  # P1 (port-only)
     "fixed_order_bmm": "fixed_order",          # P2 (port-only)
+    "sift_orientation_hist": "sift_sample",    # P3 (port-only)
+    "sift_descriptor": "sift_sample",          # P4 (port-only)
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -82,6 +89,17 @@ P2_PAIRS_2D = 147           # estimate_pairs_2d on a (1, 2) mesh: RANSAC on
 def geometry_launches(calls: int, p2: int = P2_PER_CALL) -> dict[str, int]:
     """P1's and P2's launches in `calls` estimator calls."""
     return {"five_point_coeffs": calls, "fixed_order_bmm": calls * p2}
+
+
+def sift_launches(h: int, w: int, cfg, calls: int = 1,
+                  upscale_first: bool = True) -> dict[str, int]:
+    """P3's and P4's launches in `calls` SIFT detections of h x w frames
+    (SiftConfig `cfg`): one each per octave that ops/sift.py builds (5 at
+    1241x376, 3 at 120x400)."""
+    from .sift import octave_sizes
+
+    n = len(octave_sizes(h, w, cfg.noctaves, upscale_first)) * calls
+    return {"sift_orientation_hist": n, "sift_descriptor": n}
 
 
 LAUNCHES = {name: 0 for name in KERNELS}

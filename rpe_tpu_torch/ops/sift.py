@@ -1,32 +1,45 @@
-"""SIFT detection + description (port of rpe_tpu/ops/sift.py), plain
-PyTorch, batched over frames.
+"""SIFT detection + description (port of rpe_tpu/ops/sift.py), batched
+over frames.
 
 The reference maps one frame at a time; here every stage takes a leading
 frame axis F and every reduction (extrema selection, per-octave quotas, the
 secondary-orientation re-selection) stays per frame. The reference has no
-Pallas kernel in SIFT, so nothing here is a kernel: it is the reference's
-algorithm step for step:
+Pallas kernel in SIFT; the port adds two of its own, P3 and P4
+(csrc/sift_sample.cu), for the sums whose order on the card would depend on
+the batch. It is the reference's algorithm step for step:
 
-  1. scale space: 2x linear upsample (OpenCV firstOctave=-1), incremental
-     separable Gaussian blurs as shift+multiply-add chains with reflect
-     padding and float64->float32 taps, DoG by subtraction;
+  1. scale space: 2x linear upsample (OpenCV firstOctave=-1; off with
+     upscale_first=False), incremental separable Gaussian blurs as
+     shift+multiply-add chains with reflect padding and float64->float32
+     taps, DoG by subtraction;
   2. per octave: 26-neighbour DoG extrema from separable shift-maxes, a
      static top-`quota` selection (lowest index first among equal values,
-     as `lax.top_k`), OpenCV's 5-step adjustLocalExtrema relocation with
+     as `lax.top_k`; or the reference's "block2" two-per-block
+     preselection), OpenCV's 5-step adjustLocalExtrema relocation with
      clipped cube gathers, contrast and Hessian edge checks;
   3. orientation: 36-bin histogram over a 24x24 separable bilinear grid of
-     the keypoint's own layer, [1,4,6,4,1] smoothing, parabolic peak, and a
-     secondary keypoint per second peak >= 0.8 * max;
-  4. descriptor: 4x4x8 trilinear histogram over a rotated window, built
-     from one-hot products; normalise -> clip 0.2 -> renormalise.
+     the keypoint's own layer (P3), [1,4,6,4,1] smoothing, parabolic peak,
+     and a secondary keypoint per second peak >= 0.8 * max;
+  4. descriptor: 4x4x8 trilinear histogram over a rotated window;
+     normalise -> clip 0.2 -> renormalise (P4).
+
+Where it runs: steps 1-2 and the peak logic are elementwise, gathers,
+sorts and maxima, the same bits at any batch; on CUDA tensors the
+histograms, their bilinear samples and the descriptor's norms go through
+P3 and P4 (`orientation_hist`, `descriptor`), which sum each output in a
+fixed order, so a frame's keypoints do not depend on the frames beside
+it. On CPU tensors the wrappers take the plain versions
+(`orientation_hist_plain`, `descriptor_plain`): one-hot products and
+float32 matmuls, which the entry points run with TF32 off
+(utils/device.full_precision), batch-invariant on one CPU thread (with
+several, the descriptor's batched matmul splits its work by the batch).
 
 Numerics: one-hots are built by comparison (zeros outside the range, as
-`jax.nn.one_hot`); the sampling contractions are float32 matmuls, which the
-entry points run with TF32 off (utils/device.full_precision); division by a
-constant goes through a device tensor (`_div`) because CUDA PyTorch turns
-`x / python_scalar` into a reciprocal multiply, which rounds differently
-from the reference's true division. atan2/exp/cos/sin differ from XLA's by
-ULPs, so a histogram bin can flip: the parity tests state tolerances.
+`jax.nn.one_hot`); division by a constant goes through a device tensor
+(`_div`) because CUDA PyTorch turns `x / python_scalar` into a reciprocal
+multiply, which rounds differently from the reference's true division.
+atan2/exp/cos/sin differ from XLA's by ULPs, so a histogram bin can flip:
+the parity tests state tolerances.
 
 Output: the reference's dict, (F, max_kpts, ...) -- xy float32 level-0
 pixel coords, angle radians, level int32 (octave), score |DoG|, desc (128)
@@ -36,6 +49,7 @@ zero-padded to max_kpts.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -44,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import SiftConfig
+from . import kernels
 from .orb import top_k_stable
 
 _S = 3                 # scales per octave (OpenCV nOctaveLayers)
@@ -152,19 +167,24 @@ def octave_quotas(max_kpts: int, noctaves: int):
     return quotas
 
 
-def scale_space(imgs, noctaves: int):
+def _base_sigma(upscale_first: bool) -> float:
+    """Blur that takes the (upsampled) input to sigma 1.6: the input is
+    assumed blurred by 0.5 px, 1.0 px after the 2x upsample."""
+    init = 2 * _INIT_SIGMA if upscale_first else _INIT_SIGMA
+    return math.sqrt(max(_SIGMA0 ** 2 - init ** 2, 0.01))
+
+
+def scale_space(imgs, noctaves: int, upscale_first: bool = True):
     """Gaussian octaves of (F, H, W) frames in [0, 255], the first one
-    upsampled 2x (so its pixels are half an input pixel): a list of
-    (F, S+3, h, w) stacks, one per octave down to 32 px."""
+    upsampled 2x (so its pixels are half an input pixel) unless
+    `upscale_first` is False: a list of (F, S+3, h, w) stacks, one per
+    octave down to 32 px."""
     x = _div(imgs.to(torch.float32), 255.0)
-    sig_diff = math.sqrt(max(_SIGMA0 ** 2 - (2 * _INIT_SIGMA) ** 2, 0.01))
-    oct_img = blur(upsample2x(x), sig_diff)
+    base = upsample2x(x) if upscale_first else x
+    oct_img = blur(base, _base_sigma(upscale_first))
     sig = _level_sigmas()
     octaves = []
-    for _ in range(noctaves):
-        oh, ow = oct_img.shape[-2:]
-        if oh < 32 or ow < 32:
-            break
+    for oh, ow in octave_sizes(*imgs.shape[-2:], noctaves, upscale_first):
         gauss = [oct_img]
         for i in range(1, _S + 3):
             gauss.append(blur(gauss[-1], sig[i]))
@@ -172,6 +192,19 @@ def scale_space(imgs, noctaves: int):
         # cv2 buildGaussianPyramid: every-2nd-pixel decimation of level S
         oct_img = gauss[_S][:, ::2, ::2][:, :oh // 2, :ow // 2]
     return octaves
+
+
+def octave_sizes(h: int, w: int, noctaves: int, upscale_first: bool = True):
+    """The (h, w) of each octave `scale_space` builds for h x w frames:
+    halved (floor) down to 32 px."""
+    oh, ow = (2 * h, 2 * w) if upscale_first else (h, w)
+    sizes = []
+    for _ in range(noctaves):
+        if oh < 32 or ow < 32:
+            break
+        sizes.append((oh, ow))
+        oh, ow = oh // 2, ow // 2
+    return sizes
 
 
 def extrema_values(D):
@@ -213,6 +246,36 @@ def extrema_values(D):
         ext = (is_max | is_min) & bmask
         vals.append(torch.where(ext, d.abs(), torch.zeros_like(d)))
     return torch.stack(vals, dim=1).reshape(D.shape[0], -1)
+
+
+SELECT_MODES = ("exact", "approx", "block2")
+
+
+def select_candidates(vals, quota: int, select: str = "exact"):
+    """The octave's top-`quota` extrema (F, N) -> (scores, flat indices),
+    each (F, quota), by the reference's `select` modes: "exact" and
+    "approx" (`lax.approx_max_k`, which off the TPU is the exact top-k)
+    take the stable top-k of all N; "block2" takes two first-index argmax
+    passes per 128-element block, then the stable top-k of the 2 * N / 128
+    winners (rpe_tpu/ops/sift.py `_detect_octave`)."""
+    if select not in SELECT_MODES:
+        raise ValueError(f"select must be one of {SELECT_MODES}, got "
+                         f"{select!r}")
+    if select != "block2":
+        return top_k_stable(vals, quota)
+    f, n = vals.shape
+    nb = -(-n // 128)
+    vpad = F.pad(vals, (0, nb * 128 - n)).reshape(f, nb, 128)
+    i1 = torch.argmax(vpad, dim=-1)
+    v1 = torch.gather(vpad, -1, i1[..., None])[..., 0]
+    vmask = vpad.scatter(-1, i1[..., None], 0.0)
+    i2 = torch.argmax(vmask, dim=-1)
+    v2 = torch.gather(vmask, -1, i2[..., None])[..., 0]
+    base = torch.arange(nb, device=vals.device) * 128
+    cv = torch.cat([v1, v2], dim=-1)
+    ci = torch.cat([base + i1, base + i2], dim=-1)
+    scores, sel = top_k_stable(cv, quota)
+    return scores, torch.gather(ci, -1, sel).clamp_max(n - 1)
 
 
 def _cube_derivs(c):
@@ -396,34 +459,88 @@ def _grid_weights():
     return ori_w, desc_w
 
 
-def _orientation(gxp, gyp, ucx, ucy, scl, valid):
-    """Dominant orientation and an optional second one per keypoint.
-
-    gxp/gyp (F, Q, Py, Px) in-patch gradients of the keypoint's layer,
-    ucx/ucy (F, Q) in-patch centre, scl (F, Q) octave-coordinate scale.
-    Returns (theta1, theta2, has2): has2 where a second local peak of the
-    smoothed histogram reaches 0.8 of the maximum (OpenCV
-    SIFT_ORI_PEAK_RATIO)."""
-    Py, Px = gxp.shape[-2:]
-    dev = gxp.device
-    lin = torch.from_numpy(_grid_tables()[0]).to(dev)
-    ori_w = _grid_weights()[0].to(dev)
-    radius = 3.0 * 1.5 * scl
+def _sample_weights(ucx, ucy, lin, radius, Py: int, Px: int):
+    """The separable bilinear weights of a keypoint's axis-aligned grid:
+    centre (ucx, ucy) (F, Q), grid `lin` (G,) scaled by radius (F, Q) ->
+    (Wy (F, Q, G, Py), Wx (F, Q, G, Px))."""
     ux = ucx[..., None] + lin * radius[..., None]
     uy = ucy[..., None] + lin * radius[..., None]
-    Wx = _sep_weights(ux, Px)
-    Wy = _sep_weights(uy, Py)
-    vx = _patch_sample(gxp, Wy, Wx)
-    vy = _patch_sample(gyp, Wy, Wx)
+    return _sep_weights(uy, Py), _sep_weights(ux, Px)
+
+
+def _orientation_weights(ucx, ucy, scl, Py: int, Px: int):
+    """The orientation window's bilinear weights (Wy, Wx), radius 4.5 scl."""
+    lin = torch.from_numpy(_grid_tables()[0]).to(ucx.device)
+    radius = 3.0 * 1.5 * scl
+    return _sample_weights(ucx, ucy, lin, radius, Py, Px)
+
+
+def _orientation_samples(gxp, gyp, ucx, ucy, scl):
+    """The orientation window's 24x24 gradient samples (vx, vy), each
+    (F, Q, 24, 24), rows y and columns x."""
+    Wy, Wx = _orientation_weights(ucx, ucy, scl, *gxp.shape[-2:])
+    return _patch_sample(gxp, Wy, Wx), _patch_sample(gyp, Wy, Wx)
+
+
+def _orientation_terms(vx, vy):
+    """Each sample's histogram bin (int64) and its term, the magnitude
+    times the Gaussian window (float32), both (F, Q, 24, 24)."""
+    ori_w = _grid_weights()[0].to(vx.device)
     mag = torch.sqrt(vx * vx + vy * vy)
     ang = torch.atan2(vy, vx)
-
     bins = torch.floor((_div(ang, 2 * math.pi) + 0.5) * _ORI_BINS)
     bins = bins.to(torch.int64).clamp(0, _ORI_BINS - 1)
-    lead = mag.shape[:-2]
-    onehot = _one_hot(bins, _ORI_BINS).reshape(*lead, -1, _ORI_BINS)
-    hist = torch.matmul((mag * ori_w).reshape(*lead, 1, -1), onehot)[..., 0, :]
+    return bins, mag * ori_w
 
+
+def orientation_hist_plain(gxp, gyp, ucx, ucy, scl, detail: bool = False):
+    """Plain version of P3: the 36-bin orientation histogram (F, Q, 36) of
+    each keypoint before smoothing, from gxp/gyp (F, Q, Py, Px) in-patch
+    gradients of the keypoint's layer, ucx/ucy (F, Q) in-patch centre and
+    scl (F, Q) octave-coordinate scale. The sum over the 576 samples is a
+    float32 matmul against the bins' one-hot. With `detail`, also the
+    samples vx, vy (F, Q, 24, 24) and the bins (F, Q, 576) uint8."""
+    vx, vy = _orientation_samples(gxp, gyp, ucx, ucy, scl)
+    bins, w = _orientation_terms(vx, vy)
+    lead = w.shape[:-2]
+    onehot = _one_hot(bins, _ORI_BINS).reshape(*lead, -1, _ORI_BINS)
+    hist = torch.matmul(w.reshape(*lead, 1, -1), onehot)[..., 0, :]
+    if detail:
+        return hist, vx, vy, bins.reshape(*lead, -1).to(torch.uint8)
+    return hist
+
+
+def orientation_hist(gxp, gyp, ucx, ucy, scl, detail: bool = False):
+    """P3: `orientation_hist_plain`'s histogram, each bin summed over the
+    samples in ascending order whatever the batch. CUDA tensors launch
+    csrc/sift_sample.cu; CPU tensors take the plain version. With
+    `detail`, also the kernel's samples and bins, as the plain version's
+    detail."""
+    if gxp.device.type == "cpu":
+        return orientation_hist_plain(gxp, gyp, ucx, ucy, scl, detail)
+    f, q, py, px = gxp.shape
+    gxp, gyp, ucx, ucy, scl = _kernel_inputs(
+        "sift_orientation_hist", (f, q, py, px), (f, q), gxp=gxp, gyp=gyp,
+        ucx=ucx, ucy=ucy, scl=scl)
+    dev = gxp.device
+    hist = torch.empty((f, q, _ORI_BINS), dtype=torch.float32, device=dev)
+    samples, bins = _detail_outputs(detail, f, q, dev, torch.uint8,
+                                    _ORI_GRID * _ORI_GRID)
+    kernels.launch("sift_orientation_hist",
+                   _launchers(kernels.lib("sift_sample"))[0], gxp,
+                   *map(_ptr, (gxp, gyp, ucx, ucy, scl, _device_tables(dev),
+                               hist, samples, bins)), f * q, py, px)
+    if detail:
+        return hist, samples[:, :, 0], samples[:, :, 1], bins
+    return hist
+
+
+def orientation_peaks(hist, valid):
+    """Dominant orientation and an optional second one per keypoint from
+    its raw histogram (F, Q, 36): [1,4,6,4,1] circular smoothing, then
+    (theta1, theta2, has2): has2 where a second local peak of the smoothed
+    histogram reaches 0.8 of the maximum (OpenCV SIFT_ORI_PEAK_RATIO)."""
+    dev = hist.device
     hist = (torch.roll(hist, 2, -1) + 4 * torch.roll(hist, 1, -1) + 6 * hist
             + 4 * torch.roll(hist, -1, -1) + torch.roll(hist, -2, -1)) / 16.0
 
@@ -474,12 +591,22 @@ def _tri(binf, n: int, wrap: bool):
             + _one_hot(b1i, n) * (f * m1)[..., None])
 
 
-def _descriptor(gxp, gyp, ucx, ucy, scl, theta):
-    """4x4x8 SIFT descriptor per keypoint from an axis-aligned sample grid
-    with rotated bin coordinates (the grid spans the rotated window's
-    circumradius; samples outside the bins are masked as cv2 discards
-    them). gxp/gyp (F, Q, Py, Px); ucx, ucy, scl, theta (F, Q). Returns
-    (F, Q, 128) float32, unit norm after clipping at 0.2."""
+def _normalise(desc):
+    """Normalise -> clip at 0.2 -> renormalise, along the last axis."""
+    nrm = torch.sqrt((desc * desc).sum(-1, keepdim=True)) + 1e-12
+    desc = torch.clamp_max(desc / nrm, 0.2)
+    nrm2 = torch.sqrt((desc * desc).sum(-1, keepdim=True)) + 1e-12
+    return desc / nrm2
+
+
+def descriptor_plain(gxp, gyp, ucx, ucy, scl, theta, detail: bool = False):
+    """Plain version of P4: the 4x4x8 SIFT descriptor per keypoint from an
+    axis-aligned sample grid with rotated bin coordinates (the grid spans
+    the rotated window's circumradius; samples outside the bins are masked
+    as cv2 discards them). gxp/gyp (F, Q, Py, Px) the keypoint's own
+    patch gradients; ucx, ucy, scl, theta (F, Q). Returns (F, Q, 128)
+    float32, unit norm after clipping at 0.2; with `detail`, also the
+    samples vx, vy (F, Q, 24, 24) and the 128 sums before normalising."""
     Py, Px = gxp.shape[-2:]
     dev = gxp.device
     g, d = _DESC_GRID, _DESC_D
@@ -488,10 +615,7 @@ def _descriptor(gxp, gyp, ucx, ucy, scl, theta):
     gy_, gx_ = torch.meshgrid(lin, lin, indexing="ij")
     hist_width = 3.0 * scl
     radius = hist_width * math.sqrt(2.0) * (d + 1) * 0.5
-    ux = ucx[..., None] + lin * radius[..., None]
-    uy = ucy[..., None] + lin * radius[..., None]
-    Wx = _sep_weights(ux, Px)
-    Wy = _sep_weights(uy, Py)
+    Wy, Wx = _sample_weights(ucx, ucy, lin, radius, Py, Px)
     vx = _patch_sample(gxp, Wy, Wx)
     vy = _patch_sample(gyp, Wy, Wx)
     mag = torch.sqrt(vx * vx + vy * vy)
@@ -514,12 +638,108 @@ def _descriptor(gxp, gyp, ucx, ucy, scl, theta):
     O = _tri(obin, _DESC_B, wrap=True)
     RC = (R[..., :, None] * C[..., None, :]).reshape(*lead, g * g, d * d)
     wO = (w[..., None] * O).reshape(*lead, g * g, _DESC_B)
-    desc = torch.matmul(RC.transpose(-1, -2), wO).reshape(*lead, d * d * _DESC_B)
+    raw = torch.matmul(RC.transpose(-1, -2), wO).reshape(*lead, d * d * _DESC_B)
+    if detail:
+        return _normalise(raw), vx, vy, raw
+    return _normalise(raw)
 
-    nrm = torch.sqrt((desc * desc).sum(-1, keepdim=True)) + 1e-12
-    desc = torch.clamp_max(desc / nrm, 0.2)
-    nrm2 = torch.sqrt((desc * desc).sum(-1, keepdim=True)) + 1e-12
-    return desc / nrm2
+
+def descriptor(gxp, gyp, pidx, ucx, ucy, scl, theta, detail: bool = False):
+    """P4: `descriptor_plain` of the patches gxp/gyp (F, Q0, Py, Px) picked
+    by pidx (F, Q) for the keypoints ucx, ucy, scl, theta (F, Q), every
+    sum in an order that does not depend on the batch. CUDA tensors
+    launch csrc/sift_sample.cu, which reads the patches through pidx
+    (in [0, Q0), unchecked); CPU tensors gather them and take the plain
+    version."""
+    if gxp.device.type == "cpu":
+        return descriptor_plain(_take(gxp, pidx), _take(gyp, pidx), ucx, ucy,
+                                scl, theta, detail)
+    f, q0, py, px = gxp.shape
+    q = pidx.shape[-1]
+    gxp, gyp, ucx, ucy, scl, theta = _kernel_inputs(
+        "sift_descriptor", (f, q0, py, px), (f, q), gxp=gxp, gyp=gyp,
+        ucx=ucx, ucy=ucy, scl=scl, theta=theta)
+    if pidx.shape != (f, q) or pidx.dtype != torch.int64 \
+            or pidx.device != gxp.device:
+        raise ValueError(f"sift_descriptor: pidx must be ({f}, {q}) int64 "
+                         f"on {gxp.device}")
+    pidx = pidx.contiguous()
+    dev = gxp.device
+    desc = torch.empty((f, q, _DESC_D * _DESC_D * _DESC_B),
+                       dtype=torch.float32, device=dev)
+    samples, raw = _detail_outputs(detail, f, q, dev, torch.float32,
+                                   _DESC_D * _DESC_D * _DESC_B)
+    kernels.launch("sift_descriptor",
+                   _launchers(kernels.lib("sift_sample"))[1], gxp,
+                   *map(_ptr, (gxp, gyp, pidx, ucx, ucy, scl, theta,
+                               _device_tables(dev), desc, samples, raw)),
+                   f * q, q, q0, py, px)
+    if detail:
+        return desc, samples[:, :, 0], samples[:, :, 1], raw
+    return desc
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _kernel_inputs(name, patch_shape, slot_shape, **tensors):
+    """P3's and P4's float32 inputs on one CUDA device, contiguous: the
+    patches of `patch_shape` (F, Q, Py, Px; the kernels' bilinear taps
+    need Py, Px >= 4) and the per-slot values of `slot_shape`."""
+    out = []
+    for k, t in tensors.items():
+        want = patch_shape if k in ("gxp", "gyp") else slot_shape
+        if t.dtype != torch.float32 or tuple(t.shape) != want:
+            raise ValueError(f"{name}: {k} must be {want} float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        out.append(t.contiguous())
+    if min(patch_shape[2:]) < 4:
+        raise ValueError(f"{name}: patches of {patch_shape[2:]}, the "
+                         f"bilinear taps need at least 4 x 4")
+    kernels.require_cuda(name, **dict(zip(tensors, out)))
+    return out
+
+
+def _detail_outputs(detail, f, q, dev, dtype, n):
+    """The kernels' optional outputs: samples (F, Q, 2, 24, 24) float32 and
+    (F, Q, n) of `dtype` (P3's bins, P4's sums before normalising)."""
+    if not detail:
+        return None, None
+    g = _ORI_GRID
+    return (torch.empty((f, q, 2, g, g), dtype=torch.float32, device=dev),
+            torch.empty((f, q, n), dtype=dtype, device=dev))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(device):
+    """P3's and P4's grid tables on the card, copied there once per device
+    (a tensor's device, so one with its index): the orientation grid and
+    its window, the descriptor grid and its window, float32."""
+    ori_lin, _, desc_lin = _grid_tables()
+    ori_w, desc_w = _grid_weights()
+    return torch.cat([torch.from_numpy(ori_lin), ori_w.reshape(-1),
+                      torch.from_numpy(desc_lin),
+                      desc_w.reshape(-1)]).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _launchers(lib):
+    """P3's and P4's launchers with their argument types set, once per
+    loaded library, after holding the kernel's grid to this module's."""
+    g = _ORI_GRID
+    if not (lib.sift_sample_grid() == g == _DESC_GRID
+            and lib.sift_sample_table_len() == 2 * g + 2 * g * g):
+        raise RuntimeError("sift_sample.cu's grid disagrees with ops/sift.py")
+    ori = lib.sift_orientation_hist_launch
+    ori.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_void_p]
+    ori.restype = ctypes.c_int
+    desc = lib.sift_descriptor_launch
+    desc.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 3 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    desc.restype = ctypes.c_int
+    return ori, desc
 
 
 def _take(x, idx):
@@ -528,54 +748,74 @@ def _take(x, idx):
     return torch.gather(x, 1, ix.expand(*idx.shape, *x.shape[2:]))
 
 
-def sift_detect_and_describe(imgs, cfg: SiftConfig = SiftConfig()):
+def keypoint_patches(G, xy, lay, valid, kint):
+    """Each refined keypoint's patch gradients on its own Gaussian layer
+    (1..S) of octave stack G (F, S+3, h, w): an 80-px patch covers the
+    largest descriptor window (radius ~38.5 px). Invalid slots move to
+    (16, 16). Returns (xy, scl, ucx, ucy, gxp, gyp): xy (F, Q, 2) octave
+    coords, scl (F, Q) octave-coordinate scale, ucx/ucy (F, Q) in-patch
+    centre, gxp/gyp (F, Q, Py, Px)."""
+    oh, ow = G.shape[-2:]
+    xy = torch.where(valid[..., None], xy, torch.full_like(xy, 16.0))
+    scl = _SIGMA0 * torch.pow(2.0, _div(lay, _S))
+    li = (kint - 1).clamp(0, _S - 1)
+    Py, Px = min(80, oh), min(80, ow)
+    patches, px0, py0 = extract_patches(G[:, 1:_S + 1], li, xy, Py, Px)
+    ucx = xy[..., 0] - px0.to(torch.float32)
+    ucy = xy[..., 1] - py0.to(torch.float32)
+    gxp, gyp = _patch_grads(patches)
+    return xy, scl, ucx, ucy, gxp, gyp
+
+
+def reselect(scores, valid, theta1, theta2, has2):
+    """Secondary orientations become extra keypoints; the octave's quota
+    Q is re-selected by score, primaries winning ties by a haircut.
+    Returns (score (F, Q), pidx: each slot's source keypoint (F, Q),
+    theta (F, Q))."""
+    q0 = scores.shape[1]
+    score2 = torch.cat([scores, torch.where(
+        has2, scores * (1.0 - 1e-6), torch.zeros_like(scores))], dim=1)
+    valid2 = torch.cat([valid, has2], dim=1)
+    sel_score, sel = top_k_stable(
+        torch.where(valid2, score2, torch.zeros_like(score2)), q0)
+    theta = torch.gather(torch.cat([theta1, theta2], dim=1), 1, sel)
+    return sel_score, sel % q0, theta
+
+
+def sift_detect_and_describe(imgs, cfg: SiftConfig = SiftConfig(),
+                             upscale_first: bool = True,
+                             select: str = "exact"):
     """SIFT on a batch of grayscale frames (F, H, W) float32 in [0, 255],
-    the first octave upsampled 2x (the reference's default,
-    upscale_first=True; its other options are not ported).
+    with the reference's options: the first octave upsampled 2x unless
+    `upscale_first` is False, the extrema quota picked by `select`
+    (`select_candidates`).
 
     Returns dict of (F, max_kpts, ...) arrays: xy (2) float32 level-0 pixel
     coords, angle float32 radians, level int32 octave, score float32,
     desc (128) float32, valid bool."""
-    octaves = scale_space(imgs, cfg.noctaves)
+    octaves = scale_space(imgs, cfg.noctaves, upscale_first)
     quotas = octave_quotas(cfg.max_kpts, cfg.noctaves)
+    base_scale = 0.5 if upscale_first else 1.0
     outs = []
     for o, G in enumerate(octaves):
-        f, _, oh, ow = G.shape
+        f = G.shape[0]
         D = G[:, 1:] - G[:, :-1]                              # (F, S+2, h, w)
-        scores0, flat = top_k_stable(extrema_values(D), quotas[o])
+        scores0, flat = select_candidates(extrema_values(D), quotas[o],
+                                          select)
         xy, lay, scores, valid, kint = refine_candidates(D, scores0, flat)
-        xy = torch.where(valid[..., None], xy, torch.full_like(xy, 16.0))
-        scl = _SIGMA0 * torch.pow(2.0, _div(lay, _S))
-
-        # each keypoint samples its own layer (1..S); an 80-px patch covers
-        # the largest descriptor window (radius ~38.5 px)
-        li = (kint - 1).clamp(0, _S - 1)
-        Py, Px = min(80, oh), min(80, ow)
-        patches, px0, py0 = extract_patches(G[:, 1:_S + 1], li, xy, Py, Px)
-        ucx = xy[..., 0] - px0.to(torch.float32)
-        ucy = xy[..., 1] - py0.to(torch.float32)
-        gxp, gyp = _patch_grads(patches)
-        theta1, theta2, has2 = _orientation(gxp, gyp, ucx, ucy, scl, valid)
-
-        # secondary orientations become extra keypoints; the octave's quota
-        # is re-selected by score, primaries winning ties by a haircut
-        q0 = xy.shape[1]
-        score2 = torch.cat([scores, torch.where(
-            has2, scores * (1.0 - 1e-6), torch.zeros_like(scores))], dim=1)
-        valid2 = torch.cat([valid, has2], dim=1)
-        sel_score, sel = top_k_stable(
-            torch.where(valid2, score2, torch.zeros_like(score2)), q0)
-        pidx = sel % q0
-        theta = torch.gather(torch.cat([theta1, theta2], dim=1), 1, sel)
-        xy = _take(xy, pidx)
+        xy, scl, ucx, ucy, gxp, gyp = keypoint_patches(G, xy, lay, valid,
+                                                       kint)
+        hist = orientation_hist(gxp, gyp, ucx, ucy, scl)
+        theta1, theta2, has2 = orientation_peaks(hist, valid)
+        sel_score, pidx, theta = reselect(scores, valid, theta1, theta2,
+                                          has2)
         scl = torch.gather(scl, 1, pidx)
-        desc = _descriptor(_take(gxp, pidx), _take(gyp, pidx),
-                           torch.gather(ucx, 1, pidx),
-                           torch.gather(ucy, 1, pidx), scl, theta)
+        desc = descriptor(gxp, gyp, pidx, torch.gather(ucx, 1, pidx),
+                          torch.gather(ucy, 1, pidx), scl, theta)
         outs.append({
-            "xy": xy * (0.5 * (2.0 ** o)),
+            "xy": _take(xy, pidx) * (base_scale * (2.0 ** o)),
             "angle": theta,
-            "level": torch.full((f, q0), o, dtype=torch.int32,
+            "level": torch.full(pidx.shape, o, dtype=torch.int32,
                                 device=imgs.device),
             "score": sel_score,
             "desc": desc,

@@ -5,10 +5,10 @@ The functional core runs on static shapes with validity masks, and a
 degenerate pair surfaces as `valid=False` with an identity pose instead of
 an exception. Where the reference maps detection over frames and vmaps the
 pair stage, the port batches: all frames of a call go through detection
-together (ORB: one launch each of K1 and K2; SIFT is plain PyTorch) and
-all pairs through matching and RANSAC together (one launch of the matcher's
-kernel -- K3 Hamming or K7 L2 cross-check, K6 for the Lowe ratio test --
-and one of K4).
+together (ORB: one launch each of K1 and K2; SIFT: one each of P3 and
+P4 per octave) and all pairs through matching and RANSAC together (one
+launch of the matcher's kernel -- K3 Hamming or K7 L2 cross-check, K6 for
+the Lowe ratio test -- and one of K4).
 
 Entry points take `device=None`, meaning the CUDA card (utils/device.py),
 and set full float32 matmul precision before any work. `PoseEstimator`

@@ -10,6 +10,20 @@ difference is traced to the first stage whose output depends on the batch:
 
   detect         detections of each chunk's frames (a chunk of c pairs
                  takes c + 1 frames) against the whole run's
+  (SIFT only, before `detect`: its stages on the whole run's inputs of
+  each chunk's frames, every octave; ops/sift.py)
+  scale space    `scale_space` octaves
+  extrema        `extrema_values`
+  select         `select_candidates` (the stable top-k) on them
+  refine         `refine_candidates`
+  patches        `keypoint_patches`: `extract_patches`, `_patch_grads`
+  orient sample  vx, vy of the orientation window (P3's samples)
+  orient hist    the 36-bin histogram (P3)
+  theta          `orientation_peaks`: theta1, theta2, has2
+  reselect       `reselect`: the quota's re-selection
+  desc sample    vx, vy of the descriptor window (P4's samples)
+  desc hist      the 128 sums before normalising (P4)
+  desc           after normalise, clip and renormalise (P4)
   match          matches of each pair, on identical detections
   null4          the Householder null space of the epipolar rows
   coeffs         `constraint_coeffs`: null4 and the constraint coefficients
@@ -40,6 +54,8 @@ difference is traced to the first stage whose output depends on the batch:
     python3 scripts/batch_invariance_probe.py              # on the card
     python3 scripts/batch_invariance_probe.py --device cpu
     python3 scripts/batch_invariance_probe.py --feature sift
+    python3 scripts/batch_invariance_probe.py --feature sift --device cpu \
+        --pairs 4 --size 120 400
 
 Prints one line per stage: the largest absolute difference of any output
 against the whole batch's at each chunk size (0 means bit-equal; NaN at
@@ -70,6 +86,7 @@ from rpe_tpu_torch.geometry.epipolar import _build_epipolar_rows, \
     sampson_error_sq  # noqa: E402
 from rpe_tpu_torch.geometry.recover_pose import _four_candidates, \
     decompose_essential, recover_pose, triangulate_depths  # noqa: E402
+from rpe_tpu_torch.ops import sift  # noqa: E402
 from rpe_tpu_torch.pipeline.estimator import detect_features, \
     estimate_sequence_batched, match_features  # noqa: E402
 from rpe_tpu_torch.utils.device import full_precision, \
@@ -105,6 +122,82 @@ def split_diff(fn, n: int, size: int, whole=None) -> float:
                for i, w in enumerate(whole))
 
 
+def frame_chunks(n: int, size: int):
+    """The frames of each chunk of `size` pairs out of n: a chunk of c
+    pairs takes c + 1 frames."""
+    return [slice(a, min(a + size, n) + 1) for a in range(0, n, size)]
+
+
+def sift_detection_probe(imgs, cfg: EstimatorConfig, sizes=SIZES,
+                         say=print):
+    """SIFT's detection stage by stage (ops/sift.py): each stage runs on
+    the whole run's inputs of each chunk's frames, every octave, and is
+    compared with the whole run's outputs on those frames. Returns
+    {stage: {size: largest difference}} and prints one line a stage."""
+    n = imgs.shape[0] - 1
+    sc = cfg.sift
+    res = {}
+
+    def record(name, whole, part_fn):
+        """Fold one octave's differences of stage `name` into res."""
+        got = res.setdefault(name, {c: 0.0 for c in sizes})
+        whole = _outputs(whole)
+        for c in sizes:
+            for sl in frame_chunks(n, c):
+                part = _outputs(part_fn(sl))
+                got[c] = max([got[c]] + [diff(w[sl], p)
+                                         for w, p in zip(whole, part)])
+
+    def stage(name, fn):
+        """Stage `name`: fn(frame slice) on the whole run and on each
+        chunk's frames; returns the whole run's outputs."""
+        whole = fn(slice(0, n + 1))
+        record(name, whole, fn)
+        return whole
+
+    octaves = stage("scale space",
+                    lambda sl: sift.scale_space(imgs[sl], sc.noctaves))
+    quotas = sift.octave_quotas(sc.max_kpts, sc.noctaves)
+    for o, G in enumerate(octaves):
+        D = G[:, 1:] - G[:, :-1]
+        ext = stage("extrema", lambda sl: sift.extrema_values(D[sl]))
+        s0, flat = stage("select", lambda sl: sift.select_candidates(
+            ext[sl], quotas[o]))
+        xy, lay, scores, valid, kint = stage(
+            "refine", lambda sl: sift.refine_candidates(D[sl], s0[sl],
+                                                        flat[sl]))
+        xy, scl, ucx, ucy, gxp, gyp = stage(
+            "patches", lambda sl: sift.keypoint_patches(
+                G[sl], xy[sl], lay[sl], valid[sl], kint[sl]))
+
+        def orient(sl):
+            return sift.orientation_hist(gxp[sl], gyp[sl], ucx[sl], ucy[sl],
+                                         scl[sl], detail=True)
+
+        hist, vx, vy, _ = orient(slice(0, n + 1))
+        record("orient sample", (vx, vy), lambda sl: orient(sl)[1:3])
+        record("orient hist", hist, lambda sl: orient(sl)[0])
+        th1, th2, has2 = stage("theta", lambda sl: sift.orientation_peaks(
+            hist[sl], valid[sl]))
+        _, pidx, theta = stage("reselect", lambda sl: sift.reselect(
+            scores[sl], valid[sl], th1[sl], th2[sl], has2[sl]))
+        sx, sy, ss = (torch.gather(v, 1, pidx) for v in (ucx, ucy, scl))
+
+        def describe(sl):
+            return sift.descriptor(gxp[sl], gyp[sl], pidx[sl], sx[sl],
+                                   sy[sl], ss[sl], theta[sl], detail=True)
+
+        desc, dvx, dvy, raw = describe(slice(0, n + 1))
+        record("desc sample", (dvx, dvy), lambda sl: describe(sl)[1:3])
+        record("desc hist", raw, lambda sl: describe(sl)[3])
+        record("desc", desc, lambda sl: describe(sl)[0])
+        del G, D, ext, gxp, gyp, hist, vx, vy, desc, dvx, dvy, raw
+    for name, r in res.items():
+        say(f"{name:14s}" + "  ".join(f"{c:2d}/call {r[c]:.3g}"
+                                      for c in sizes))
+    return res
+
+
 def run_probe(imgs, K, keys, cfg: EstimatorConfig, sizes=SIZES,
               say=print):
     """Every stage of the path at every chunk size in `sizes`; returns
@@ -124,15 +217,16 @@ def run_probe(imgs, K, keys, cfg: EstimatorConfig, sizes=SIZES,
         return {k: v[s] for k, v in d.items()}
 
     with torch.no_grad():
+        if cfg.feature_method.upper() == "SIFT":
+            res.update(sift_detection_probe(imgs, cfg, sizes, say))
         dets = detect_features(imgs, cfg)
         d_det = {}
         for c in sizes:
             d_det[c] = 0.0
-            for a in range(0, n, c):
-                b = min(a + c, n)
-                part = detect_features(imgs[a:b + 1], cfg)
+            for sl in frame_chunks(n, c):
+                part = detect_features(imgs[sl], cfg)
                 d_det[c] = max([d_det[c]] + [
-                    diff(dets[k][a:b + 1], part[k]) for k in sorted(dets)])
+                    diff(dets[k][sl], part[k]) for k in sorted(dets)])
         res["detect"] = d_det
         say(f"{'detect':14s}" + "  ".join(
             f"{c:2d}/call {d_det[c]:.3g}" for c in sizes))
@@ -250,6 +344,8 @@ def main() -> None:
                     help="cpu, or the card (default)")
     ap.add_argument("--pairs", type=int, default=32)
     ap.add_argument("--feature", choices=("orb", "sift"), default="orb")
+    ap.add_argument("--size", type=int, nargs=2, default=(376, 1241),
+                    metavar=("H", "W"), help="frame size (default KITTI's)")
     args = ap.parse_args()
     from rpe_tpu_torch.utils.synthetic import make_sequence
 
@@ -266,7 +362,7 @@ def main() -> None:
         feature_method="SIFT", matcher=MatcherConfig(norm_type="l2"))
     n = args.pairs
     # chip_smoke.py phase 5's motion (SEQ_STEP, SEQ_ROT_DEG), seed 0
-    frames, K, _ = make_sequence(n + 1, 376, 1241, seed=0,
+    frames, K, _ = make_sequence(n + 1, *args.size, seed=0,
                                  step=(0.035, -0.005, 0.1), rot_deg=0.25)
     imgs = torch.from_numpy(frames).to(dev)
     Kt = torch.as_tensor(K, dtype=torch.float32, device=dev)

@@ -14,7 +14,14 @@ fixed by their code. These CPU tests hold:
 - P2's helpers on CPU tensors are today's expressions bit for bit at each
   call site's shapes, within 1e-6 of sum |a| |b| of a float64 product, and
   are called as often per estimator call as ops/kernels.py states;
-- scripts/batch_invariance_probe.py's stage comparisons report 0.0.
+- scripts/batch_invariance_probe.py's stage comparisons report 0.0, its
+  SIFT detection sub-stages too;
+- the SIFT A path (120x400 frames, 512 slots): detections and R, t,
+  `valid`, `num_inliers` bit-equal for 4 pairs in one call, 2 + 2 and
+  1 x 4; P3's and P4's wrappers on CPU tensors are
+  `orientation_hist_plain` and `descriptor_plain` bit for bit, detail
+  outputs included; `kernels.sift_launches` counts the octaves that
+  `scale_space` builds.
 
 The kernels themselves are held to these plain versions on the card
 (tests/test_torch_gpu.py, chip_smoke.py).
@@ -34,10 +41,12 @@ from rpe_tpu.geometry import five_point as jfp
 from rpe_tpu.geometry.epipolar import _build_epipolar_rows as j_rows
 from rpe_tpu_torch import rng
 from rpe_tpu_torch.config import EstimatorConfig, MatcherConfig, OrbConfig, \
-    RansacConfig
+    RansacConfig, SiftConfig
 from rpe_tpu_torch.geometry import _products as prod
 from rpe_tpu_torch.geometry import five_point as tfp
-from rpe_tpu_torch.pipeline.estimator import estimate_sequence_batched
+from rpe_tpu_torch.ops import sift as tsift
+from rpe_tpu_torch.pipeline.estimator import detect_features, \
+    estimate_sequence_batched
 from torch_gates import default_extraction_gates  # noqa: F401
 from torch_gates import one_torch_thread  # noqa: F401
 
@@ -194,12 +203,17 @@ def test_row_sum_is_todays_sum_on_cpu(shape):
                   / x.abs().double().sum(-1)).max()) <= 1e-6
 
 
-def test_probe_stages_report_zero_on_cpu():
+def _probe():
     spec = importlib.util.spec_from_file_location(
         "batch_invariance_probe",
         ROOT / "scripts" / "batch_invariance_probe.py")
     probe = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(probe)
+    return probe
+
+
+def test_probe_stages_report_zero_on_cpu():
+    probe = _probe()
     imgs, keys = _scene()
     res = probe.run_probe(imgs, torch.from_numpy(K), keys, TINY, sizes=(4, 1),
                           say=lambda _: None)
@@ -241,3 +255,105 @@ def test_p2_launches_per_call(monkeypatch, path):
                           ransac=RansacConfig(num_hypotheses=128, lo=lo))
     estimate_sequence_batched(imgs, K, keys, cfg, device="cpu")
     assert calls[0] == (kernels.P2_PER_CALL_LO if lo else kernels.P2_PER_CALL)
+
+
+# tests/test_torch_sift.py's size: 120x400 frames, 512 slots; its config A
+# cut to size
+SIFT_H, SIFT_W = 120, 400
+SIFT_A = EstimatorConfig(
+    feature_method="SIFT", sift=SiftConfig(max_kpts=512),
+    matcher=MatcherConfig(norm_type="l2", max_matches=128),
+    ransac=RansacConfig(num_hypotheses=64, degensac=False))
+
+
+@pytest.fixture(scope="module")
+def sift_scene():
+    from rpe_tpu_torch.utils.synthetic import make_sequence
+
+    frames, Ks, _ = make_sequence(5, SIFT_H, SIFT_W, seed=4)
+    keys = torch.stack([rng.PRNGKey(i) for i in range(4)])
+    imgs = torch.from_numpy(frames)
+    return imgs, Ks, keys, estimate_sequence_batched(
+        imgs, Ks, keys, SIFT_A, device="cpu"), detect_features(imgs, SIFT_A)
+
+
+@pytest.mark.parametrize("size", [2, 1])
+def test_sift_pose_and_detections_bit_equal_across_splits(sift_scene, size):
+    imgs, Ks, keys, out, whole = sift_scene
+    parts = [estimate_sequence_batched(imgs[a:a + size + 1], Ks,
+                                       keys[a:a + size], SIFT_A,
+                                       device="cpu")
+             for a in range(0, 4, size)]
+    assert out["valid"].sum() >= 3
+    for k in ("R", "t", "valid", "num_inliers", "num_matches"):
+        assert torch.equal(out[k], torch.cat([p[k] for p in parts])), k
+    assert whole["valid"].sum() >= 300
+    for a in range(0, 4, size):
+        part = detect_features(imgs[a:a + size + 1], SIFT_A)
+        for k in whole:
+            assert torch.equal(whole[k][a:a + size + 1], part[k]), (a, k)
+
+
+def _sift_stage_inputs(seed=0, f=2, q=64, py=80, px=80):
+    """Random patch gradients and keypoints in the ranges SIFT gives P3 and
+    P4, on the CPU."""
+    g = np.random.default_rng(seed)
+    patches = torch.from_numpy(g.uniform(0, 1, (f, q, py, px))
+                               .astype(np.float32))
+    gxp, gyp = tsift._patch_grads(patches)
+
+    def u(lo, hi):
+        return torch.from_numpy(g.uniform(lo, hi, (f, q)).astype(np.float32))
+
+    pidx = torch.from_numpy(g.integers(0, q, (f, q)))
+    return gxp, gyp, u(20, 40), u(20, 40), u(1.6, 4.0), u(-3.1, 3.1), pidx
+
+
+@pytest.mark.parametrize("shape", [(80, 80), (60, 80), (47, 80)])
+def test_sift_wrappers_are_plain_on_cpu(shape):
+    gxp, gyp, ucx, ucy, scl, theta, pidx = _sift_stage_inputs(0, 2, 64,
+                                                              *shape)
+    hist = tsift.orientation_hist(gxp, gyp, ucx, ucy, scl)
+    assert torch.equal(hist, tsift.orientation_hist_plain(gxp, gyp, ucx, ucy,
+                                                          scl))
+    got = tsift.orientation_hist(gxp, gyp, ucx, ucy, scl, detail=True)
+    want = tsift.orientation_hist_plain(gxp, gyp, ucx, ucy, scl, detail=True)
+    assert got[0].shape == (2, 64, 36) and got[3].shape == (2, 64, 576)
+    assert got[3].dtype == torch.uint8
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(got[0], hist)
+    desc = tsift.descriptor(gxp, gyp, pidx, ucx, ucy, scl, theta)
+    plain = tsift.descriptor_plain(tsift._take(gxp, pidx),
+                                   tsift._take(gyp, pidx), ucx, ucy, scl,
+                                   theta, detail=True)
+    assert desc.shape == (2, 64, 128) and torch.equal(desc, plain[0])
+    got = tsift.descriptor(gxp, gyp, pidx, ucx, ucy, scl, theta, detail=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+def test_probe_sift_substages_report_zero_on_cpu(sift_scene):
+    probe = _probe()
+    res = probe.sift_detection_probe(sift_scene[0][:3], SIFT_A, sizes=(1,),
+                                     say=lambda _: None)
+    assert set(res) == {"scale space", "extrema", "select", "refine",
+                        "patches", "orient sample", "orient hist", "theta",
+                        "reselect", "desc sample", "desc hist", "desc"}
+    moved = {k: v for k, v in res.items() if any(x != 0.0 for x in v.values())}
+    assert not moved, moved
+
+
+@pytest.mark.parametrize("h,w,octaves", [(120, 400, 3), (376, 1241, 5),
+                                         (240, 480, 4)])
+def test_sift_launches_count_the_octaves_built(h, w, octaves):
+    """ops/kernels.py `sift_launches` (the launch gates of chip_smoke.py
+    and tests/test_torch_gpu.py): P3 and P4 once per octave that
+    `scale_space` builds, here counted on frames of each size."""
+    from rpe_tpu_torch.ops import kernels
+
+    cfg = SiftConfig()
+    built = tsift.scale_space(torch.zeros(1, h, w), cfg.noctaves)
+    assert len(built) == octaves
+    assert [tuple(g.shape[-2:]) for g in built] == tsift.octave_sizes(
+        h, w, cfg.noctaves)
+    assert kernels.sift_launches(h, w, cfg, calls=3) == {
+        "sift_orientation_hist": 3 * octaves, "sift_descriptor": 3 * octaves}

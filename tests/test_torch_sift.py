@@ -116,14 +116,33 @@ def test_octave_quotas_and_taps_match_reference():
 def test_extrema_and_relocation_on_identical_dogs(reference_octaves, octave):
     """Identical DoG stacks in: the same candidates survive relocation,
     contrast and edge checks, at the same layer, within float32 rounding."""
+    _check_octave(reference_octaves, octave, "exact")
+
+
+@pytest.mark.parametrize("select,octave", [("approx", 0), ("block2", 2)])
+def test_select_modes_on_identical_dogs(reference_octaves, select, octave):
+    """The reference's other extrema selections (`_detect_octave`'s
+    `select`): "approx" (lax.approx_max_k, off the TPU the exact top-k)
+    and "block2" (two first-index maxima per 128-element block, then the
+    top-k of the winners; octave 2's 36000 values end in a padded block),
+    held as the default selection is."""
+    _check_octave(reference_octaves, octave, select)
+
+
+def _check_octave(reference_octaves, octave, select):
     G = reference_octaves[octave]
     quota = jsift._octave_quotas(MAX_KPTS, 6)[octave]
     gauss = [jnp.asarray(g) for g in G]
     dogs = [gauss[i + 1] - gauss[i] for i in range(len(gauss) - 1)]
     xy_j, lay_j, score_j, valid_j, k_j = (np.asarray(a) for a in jax.jit(
-        lambda g, d: jsift._detect_octave(g, d, quota))(gauss, dogs))
+        lambda g, d: jsift._detect_octave(g, d, quota, select=select))(
+            gauss, dogs))
     D = torch.from_numpy(np.stack([np.asarray(d) for d in dogs]))[None]
-    s0, flat = top_k_stable(tsift.extrema_values(D), quota)
+    s0, flat = tsift.select_candidates(tsift.extrema_values(D), quota,
+                                       select)
+    if select != "block2":
+        want = top_k_stable(tsift.extrema_values(D), quota)
+        assert torch.equal(s0, want[0]) and torch.equal(flat, want[1])
     xy_t, lay_t, score_t, valid_t, k_t = (a[0].numpy() for a in
                                           tsift.refine_candidates(D, s0, flat))
     np.testing.assert_array_equal(valid_t, valid_j)
@@ -147,8 +166,10 @@ def test_orientation_and_descriptor_on_identical_patches():
     args = (gxp, gyp, ucx, ucy, scl)
     th_j = [np.asarray(a) for a in jax.jit(jsift._orientation)(
         *map(jnp.asarray, args + (valid,)))]
-    th_t = [a[0].numpy() for a in tsift._orientation(
-        *(torch.from_numpy(a)[None] for a in args + (valid,)))]
+    t_args = [torch.from_numpy(a)[None] for a in args]
+    th_t = [a[0].numpy() for a in tsift.orientation_peaks(
+        tsift.orientation_hist_plain(*t_args),
+        torch.from_numpy(valid)[None])]
     np.testing.assert_allclose(th_t[0], th_j[0], atol=1e-4, rtol=0)
     np.testing.assert_array_equal(th_t[2], th_j[2])
     assert th_j[2].sum() > 0
@@ -157,7 +178,7 @@ def test_orientation_and_descriptor_on_identical_patches():
     theta = th_j[0]
     d_j = np.asarray(jax.jit(jsift._descriptor)(
         *map(jnp.asarray, args + (theta,))))
-    d_t = tsift._descriptor(
+    d_t = tsift.descriptor_plain(
         *(torch.from_numpy(a)[None] for a in args + (theta,)))[0].numpy()
     np.testing.assert_allclose(d_t, d_j, atol=1e-5, rtol=0)
 
@@ -172,30 +193,57 @@ def test_detection_matches_reference(reference, port):
         assert port[k].dtype == reference[k].dtype, k
     assert port["desc"].shape == (3, MAX_KPTS, 128)
     for i in range(3):
-        r = {k: v[i] for k, v in reference.items()}
-        t = {k: v[i] for k, v in port.items()}
-        vr, vt = r["valid"], t["valid"]
-        assert vr.sum() > 100
-        near = (np.abs(r["xy"][vr][:, None] - t["xy"][vt][None]).max(-1)
-                <= 1e-3) & (r["level"][vr][:, None] == t["level"][vt][None])
-        da = np.abs((r["angle"][vr][:, None] - t["angle"][vt][None] + np.pi)
-                    % (2 * np.pi) - np.pi)
-        cost = np.where(near, da, np.inf)
-        j = cost.argmin(1)
-        rows = np.arange(len(j))
-        found = np.isfinite(cost[rows, j])
-        assert found.mean() >= 0.98, (i, found.mean())
-        cos = (r["desc"][vr][found] * t["desc"][vt][j[found]]).sum(-1)
-        assert (cos >= 0.999).mean() >= 0.98, (i, (cos >= 0.999).mean())
-        dxy = np.abs(r["xy"][vr][found] - t["xy"][vt][j[found]]).max()
-        print(f"frame {i}: {int(vr.sum())} reference / {int(vt.sum())} port "
-              f"valid keypoints, reproduced {found.mean():.4f}, max |dxy| "
-              f"{dxy:.3e} px, min descriptor cosine {cos.min():.7f}")
-        np.testing.assert_allclose(np.linalg.norm(t["desc"][vt], axis=1), 1.0,
-                                   atol=1e-4)
-        n_slots = sum(jsift._octave_quotas(MAX_KPTS, 6)[:3])
-        assert not t["valid"][n_slots:].any()
-        assert not t["desc"][n_slots:].any() and not t["xy"][n_slots:].any()
+        _assert_reproduced({k: v[i] for k, v in reference.items()},
+                           {k: v[i] for k, v in port.items()}, i)
+
+
+@pytest.mark.parametrize("option", [{"upscale_first": False},
+                                    {"select": "block2"}],
+                         ids=["no_upscale", "block2"])
+def test_detection_options_match_reference(scene, option):
+    """The reference's options of `sift_detect_and_describe` end to end on
+    frame 0, held as the default is (`_assert_reproduced`):
+    upscale_first=False (no 2x upsample, base scale 1, sigma sqrt(1.6^2 -
+    0.5^2)) and select="block2"."""
+    ref = jax.jit(lambda im: jsift.sift_detect_and_describe(
+        im, jcfg.SiftConfig(max_kpts=MAX_KPTS), **option))(
+            jnp.asarray(scene[0][0]))
+    got = tsift.sift_detect_and_describe(
+        torch.from_numpy(scene[0][:1]), tcfg.SiftConfig(max_kpts=MAX_KPTS),
+        **option)
+    ref = {k: np.asarray(v) for k, v in ref.items()}
+    got = {k: v[0].numpy() for k, v in got.items()}
+    for k in ref:
+        assert got[k].shape == ref[k].shape and got[k].dtype == ref[k].dtype
+    _assert_reproduced(ref, got, 0)
+
+
+def _assert_reproduced(r, t, i):
+    """One frame's detections: >= 98% of the reference's valid keypoints
+    reappear within 1e-3 px at the same octave, >= 98% of those with
+    descriptor cosine >= 0.999, unit-norm descriptors, zero padding."""
+    vr, vt = r["valid"], t["valid"]
+    assert vr.sum() > 100
+    near = (np.abs(r["xy"][vr][:, None] - t["xy"][vt][None]).max(-1)
+            <= 1e-3) & (r["level"][vr][:, None] == t["level"][vt][None])
+    da = np.abs((r["angle"][vr][:, None] - t["angle"][vt][None] + np.pi)
+                % (2 * np.pi) - np.pi)
+    cost = np.where(near, da, np.inf)
+    j = cost.argmin(1)
+    rows = np.arange(len(j))
+    found = np.isfinite(cost[rows, j])
+    assert found.mean() >= 0.98, (i, found.mean())
+    cos = (r["desc"][vr][found] * t["desc"][vt][j[found]]).sum(-1)
+    assert (cos >= 0.999).mean() >= 0.98, (i, (cos >= 0.999).mean())
+    dxy = np.abs(r["xy"][vr][found] - t["xy"][vt][j[found]]).max()
+    print(f"frame {i}: {int(vr.sum())} reference / {int(vt.sum())} port "
+          f"valid keypoints, reproduced {found.mean():.4f}, max |dxy| "
+          f"{dxy:.3e} px, min descriptor cosine {cos.min():.7f}")
+    np.testing.assert_allclose(np.linalg.norm(t["desc"][vt], axis=1), 1.0,
+                               atol=1e-4)
+    n_slots = sum(jsift._octave_quotas(MAX_KPTS, 6)[:3])
+    assert not t["valid"][n_slots:].any()
+    assert not t["desc"][n_slots:].any() and not t["xy"][n_slots:].any()
 
 
 # ---- the SIFT pose paths --------------------------------------------------------

@@ -302,8 +302,8 @@ def test_every_launch_goes_through_the_device_guard():
         assert "stream_ptr(" not in text, f
         assert "kernels.check(" not in text, f
         launches += text.count("kernels.launch(")
-    # K1, K2/K12, K8-K10, K3, K7/K6-L2, K6-H, K4, K5, P1, P2
-    assert launches == 10
+    # K1, K2/K12, K8-K10, K3, K7/K6-L2, K6-H, K4, K5, P1, P2, P3, P4
+    assert launches == 12
 
 
 def _functions(path):
@@ -362,6 +362,22 @@ def test_fixed_order_sites_reach_their_kernels():
     for name in ("fixed_order_bmm", "fixed_order_sum"):
         assert "_launch" in _calls(prod[name])
     assert "kernels.launch" in _calls(prod["_launch"])
+
+
+def test_sift_stages_reach_their_kernels():
+    """On the card branch SIFT's orientation histogram and descriptor
+    (ops/sift.py `orientation_hist`, `descriptor`) launch P3 and P4 with
+    `kernels.launch`, and no torch.matmul, einsum or bmm is left in them
+    or in the detection loop, which calls both."""
+    fns = _functions(ROOT / "rpe_tpu_torch" / "ops" / "sift.py")
+    bare = {"torch.matmul", "torch.einsum", "torch.bmm"}
+    for name in ("orientation_hist", "descriptor"):
+        calls = _calls(fns[name])
+        assert "kernels.launch" in calls, name
+        assert not calls & bare, (name, calls & bare)
+    loop = _calls(fns["sift_detect_and_describe"])
+    assert {"orientation_hist", "descriptor"} <= loop
+    assert not loop & bare
 
 
 class _FakeCudaTensor:

@@ -1,9 +1,9 @@
 """The contracts that hold the port's fixed-order kernels P1
-(csrc/five_point_coeffs.cu) and P2 (csrc/fixed_order.cu) to their plain
-versions and to a float64 run, shared by chip_smoke.py and
-tests/test_torch_gpu.py:
+(csrc/five_point_coeffs.cu), P2 (csrc/fixed_order.cu), P3 and P4
+(csrc/sift_sample.cu) to their plain versions and to a float64 run,
+shared by chip_smoke.py and tests/test_torch_gpu.py:
 
-    from torch_judges import p1_judge, p2_judge
+    from torch_judges import p1_judge, p2_judge, p3_judge, p4_judge
 
 Only torch is needed, so chip_smoke.py can import this file on the card
 machine.
@@ -58,3 +58,91 @@ def p2_judge(got, want, exact, scale):
             if x.numel() else 0.0
 
     return bool(fine.all()), rel(dk), rel(dkp), rel(dp)
+
+
+def p3_references(gxp, gyp, ucx, ucy, scl):
+    """What P3 is held to on its inputs: the plain version's histogram
+    and, per sample, its bins and terms (`_orientation_terms`) in float32
+    and in a float64 run, and each sample's magnitude taken through the
+    sampling (its |taps| summed, as P2's sum |a| |b|, times the window):
+    a bound on its term in any order of the sums. The float64 run takes
+    the plain version's sample weights (its float32 steps, which the
+    kernel repeats) and carries every product, sum and bin after them in
+    float64; its histogram is the float64 sum of its terms. Returns
+    (hist_p, bins_p, w_p, hist_d, bins_d, w_d, m_abs): the histograms
+    (N, 36), the rest (N, 576), N = F * Q."""
+    from rpe_tpu_torch.ops import sift
+
+    hist_p = sift.orientation_hist_plain(gxp, gyp, ucx, ucy, scl)
+    n = hist_p.numel() // hist_p.shape[-1]
+    bins_p, w_p = sift._orientation_terms(*sift._orientation_samples(
+        gxp, gyp, ucx, ucy, scl))
+    Wy, Wx = (w.double() for w in sift._orientation_weights(
+        ucx, ucy, scl, *gxp.shape[-2:]))
+    bins_d, w_d = sift._orientation_terms(*(
+        sift._patch_sample(g.double(), Wy, Wx) for g in (gxp, gyp)))
+    _, m_abs = sift._orientation_terms(*(
+        sift._patch_sample(g.double().abs(), Wy, Wx) for g in (gxp, gyp)))
+    bins_p, w_p, bins_d, w_d, m_abs = (x.reshape(n, -1) for x in (
+        bins_p, w_p, bins_d, w_d, m_abs))
+    return (hist_p.reshape(n, -1), bins_p, w_p, _bin_sums(bins_d, w_d),
+            bins_d, w_d, m_abs)
+
+
+def _bin_sums(bins, w, mask=None):
+    """Float64 sums of the terms w (N, S) by bin (N, S) over 36 bins."""
+    x = w.double() if mask is None else w.double() * mask
+    return torch.zeros(bins.shape[0], 36, dtype=torch.float64,
+                       device=w.device).scatter_add_(1, bins.long(), x)
+
+
+def p3_judge(hist_k, bins_k, refs):
+    """P3's histogram hist_k and its samples' bins bins_k (the kernel's
+    own, from its detail outputs) against `p3_references`. Each bin's
+    scale is the sum of its samples' magnitudes (m_abs). A slot is
+    flipped against a reference where a sample that can move a
+    histogram (m_abs > 0) has another bin there: its angle lies within
+    rounding of a bin edge (in the float64 run also where the float32 bin
+    arithmetic rounds onto the edge). Slots flipped against neither are
+    held as P2 is (`p2_judge`); a flipped slot may differ from that
+    reference by no more than 1e-6 of the scale plus its flipped samples'
+    magnitudes in the bins they left and entered. Slots flipped against
+    the plain version: at most one per 1000 (rounded up). Returns (ok,
+    numbers for the report)."""
+    hist_p, bins_p, w_p, hist_d, bins_d, w_d, m_abs = refs
+    n = hist_k.reshape(-1, 36).shape[0]
+    k = hist_k.reshape(n, 36)
+    bk = bins_k.reshape(n, -1).long()
+    scale = _bin_sums(bins_d, m_abs)
+    flips, bounded = {}, True
+    for name, h, b in (("plain", hist_p, bins_p), ("float64", hist_d,
+                                                     bins_d)):
+        moved = (bk != b) & (m_abs > 0)
+        flips[name] = moved.any(-1)
+        slack = _bin_sums(b, m_abs, moved) + _bin_sums(bk, m_abs, moved)
+        err = (k.double() - h.double()).abs()
+        bounded &= bool((err <= 1e-6 * scale + slack)[flips[name]].all())
+    keep = ~(flips["plain"] | flips["float64"])
+    ok_p2, rel_kd, rel_kp, rel_pd = p2_judge(k[keep], hist_p[keep],
+                                             hist_d[keep], scale[keep])
+    cap = -(-n // 1000)
+    n_p, n_d = int(flips["plain"].sum()), int(flips["float64"].sum())
+    finite = bool(torch.isfinite(k).all())
+    ok = ok_p2 and bounded and n_p <= cap and finite
+    return ok, dict(slots=n, flipped_plain=n_p, flipped_f64=n_d, cap=cap,
+                    rel_kernel_f64=rel_kd, rel_kernel_plain=rel_kp,
+                    rel_plain_f64=rel_pd, flipped_within_bound=bounded,
+                    finite=finite)
+
+
+def p4_judge(desc_k, desc_p, desc_d):
+    """P4's descriptors against the plain version's and its float64 run:
+    finite, and within 1e-5 of both on every slot (the trilinear weights
+    are continuous across bin edges, so no slot is exempt). Returns (ok,
+    max |k - p|, max |k - f64|, max |p - f64|)."""
+    k = desc_k.double()
+    e_kp = float((k - desc_p.double()).abs().max()) if k.numel() else 0.0
+    e_kd = float((k - desc_d).abs().max()) if k.numel() else 0.0
+    e_pd = float((desc_p.double() - desc_d).abs().max()) if k.numel() else 0.0
+    ok = bool(torch.isfinite(desc_k).all()) and e_kp <= 1e-5 and e_kd <= 1e-5
+    return ok, e_kp, e_kd, e_pd
