@@ -38,9 +38,11 @@ Phases (any failure exits non-zero before the final line):
      (the 5-point constraint coefficients) on the 8 pairs x 256 samples
      (within 1e-5 of its plain version, no further from a float64 run
      than the plain float32 one + 1e-6, bit-equal split in two calls) and
-     P2 on every product and sum it takes in one ORB call (within 1e-6 of
-     sum |a| |b| of torch.matmul / .sum, bit-equal split in two), each
-     timed with its bound, P2 beside torch.matmul / .sum; P3 (SIFT's
+     P2 on every launch it makes in one ORB call (each product bit-equal
+     to tests/torch_judges.py `p2_serial`, the serial float64 loop over k;
+     within 1e-6 of sum |a| |b| of torch.matmul / .sum; bit-equal split in
+     two), each timed with its bound, P2 beside torch.matmul / .sum, P2
+     and P4 with their times before the redesign; P3 (SIFT's
      orientation histogram) and P4 (its descriptor) on every octave's
      inputs of one SIFT A chunk's detection (tests/torch_judges.py
      `p3_judge`: each bin within 1e-6 of its terms' magnitudes of the plain
@@ -200,6 +202,17 @@ P1_OPS, P1_BYTES = 7761, 80 + (36 + 200) * 4
 # products and sums 20: 70) and per P4 slot (the two norms and
 # divisions, 4 per output)
 P3_OPS_PER_SAMPLE, P4_OPS_PER_SAMPLE, P4_OPS_PER_SLOT = 25, 70, 512
+
+
+# The times of the kernels that a later design replaced, as chip_smoke.py
+# measured them on the same work (PERF.md, Findings): the flushed, queued
+# and device ms per chunk, NVIDIA H100 80GB HBM3 at 700 W
+BEFORE_REDESIGN = {
+    "fixed_order_bmm": "79 launches of a thread per output, 1.3608 ms "
+                       "flushed, 1.6474 queued, 0.5617 device (PR 14)",
+    "sift_descriptor": "a warp per slot, 2.5970 ms flushed, 2.3913 queued, "
+                       "2.3766 device (PR 15)",
+}
 
 
 def fail(msg: str) -> None:
@@ -923,43 +936,48 @@ def main() -> None:
     device["five_point_coeffs"] = device_ms(
         lambda: fp.constraint_coeffs(s1, s2), "coeffs_kernel")
 
-    # P2 -- every product and sum it takes in one call of the ORB path on
-    # the 9 frames, recorded from that call: each held by
-    # tests/torch_judges.py `p2_judge` to the float64 product and to
-    # torch.matmul / .sum(-1) (its plain version, which is also the library
-    # call), and bit-equal when the batch is split in two along the pair
-    # axis; timed as the call's whole set of launches
+    # P2 -- every launch it makes in one call of the ORB path on the 9
+    # frames, recorded from that call (a launch takes up to four products,
+    # a chain of two as one): each product bit-equal to the serial float64
+    # reference (tests/torch_judges.py `p2_serial`), held by `p2_judge` to
+    # the float64 product and to torch.matmul / .sum(-1) (its plain
+    # version, which is also the library call), and bit-equal when the
+    # batch is split in two along the pair axis; timed as the call's whole
+    # set of launches
     keys_np = np.stack([np.array([0, i], np.uint32) for i in range(8)])
     ops, p2_reads = _record_p2(torch, lambda: estimate_sequence_batched(
         frames, K, keys_np, cfg, device=dev))
-    p2_ok, p2_err, p2_rel, p2_split, p2_bytes, p2_flops = _p2_contract(
-        torch, ops, p2_reads)
+    p2_ok, p2_err, p2_rel, p2_serial_diff, p2_split, p2_bytes, p2_flops = \
+        _p2_contract(torch, ops, p2_reads)
+    n_terms = sum(len(o) for o in ops)
     check("P2 fixed_order_bmm",
-          p2_ok and p2_split and len(ops) == kernels.P2_PER_CALL,
-          f"{len(ops)} products and sums of one ORB call (want "
-          f"{kernels.P2_PER_CALL}), shapes "
-          f"{sorted({_op_shape(o) for o in ops})}; "
-          f"held to torch.matmul/.sum and float64={p2_ok} (largest abs "
-          f"difference from the plain {p2_err:.3e}; relative to "
-          f"sum|a||b|: kernel against float64 {p2_rel[0]:.3e} (<= 1e-6), "
-          f"kernel against plain {p2_rel[1]:.3e}, plain against float64 "
-          f"{p2_rel[2]:.3e}); bit-equal split in two={p2_split}; bytes "
-          f"read and written once {p2_bytes} (an element a and b share "
-          f"counted once)")
+          p2_ok and p2_split and p2_serial_diff == 0
+          and len(ops) == kernels.P2_PER_CALL,
+          f"{len(ops)} launches of one ORB call (want "
+          f"{kernels.P2_PER_CALL}), {n_terms} products and sums, shapes "
+          f"{sorted({_op_shape(o) for o in ops}, key=str)}; products "
+          f"differing from the serial float64 reference {p2_serial_diff} "
+          f"(want 0); held to torch.matmul/.sum and float64={p2_ok} "
+          f"(largest abs difference from the plain {p2_err:.3e}; relative "
+          f"to sum|a||b|: kernel against float64 {p2_rel[0]:.3e} (<= "
+          f"1e-6), kernel against plain {p2_rel[1]:.3e}, plain against "
+          f"float64 {p2_rel[2]:.3e}); bit-equal split in two={p2_split}; "
+          f"bytes read and written once {p2_bytes} (an element two "
+          f"operands share counted once)")
     b_ms, b_by = bound(p2_bytes, p2_flops, FP32_OPS_PER_S)
     rows["fixed_order_bmm"] = dict(
         name="fixed_order_bmm", route="cuda",
         source="rpe_tpu_torch/csrc/fixed_order.cu",
         # port-only: no Pallas kernel; the reference's XLA dot it computes
         replaces="rpe_tpu/geometry/epipolar.py:77", max_abs_err=p2_err,
-        ms=cuda_ms(lambda: [_p2_run(*o) for o in ops]),
-        plain_ms=cuda_ms(lambda: [_p2_plain(*o) for o in ops]),
+        ms=cuda_ms(lambda: [_p2_run(o) for o in ops]),
+        plain_ms=cuda_ms(lambda: [_p2_plain(o) for o in ops]),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: [_p2_plain(*o) for o in ops]))
+        library_ms=cuda_ms(lambda: [_p2_plain(o) for o in ops]))
     queued["fixed_order_bmm"] = queued_ms(
-        lambda: [_p2_run(*o) for o in ops])
+        lambda: [_p2_run(o) for o in ops])
     device["fixed_order_bmm"] = device_ms(
-        lambda: [_p2_run(*o) for o in ops], "bmm_kernel")
+        lambda: [_p2_run(o) for o in ops], "bmm_kernel")
     del ops
 
     # P3, P4 -- every octave's inputs of one SIFT A chunk's detection (the
@@ -979,7 +997,11 @@ def main() -> None:
         q = (f" (queued {queued[r['name']]:.4f} ms per call)"
              if r["name"] in queued else "")
         if r["name"] in device:
-            q += f" (device {device[r['name']]:.4f} ms per call)"
+            q += (f" (device {device[r['name']]:.4f} ms per call, "
+                  f"{100 * r['bound_ms'] / device[r['name']]:.1f}% of the "
+                  f"bound)")
+        if r["name"] in BEFORE_REDESIGN:
+            q += f" (before the redesign: {BEFORE_REDESIGN[r['name']]})"
         say(f"{r['name']}: kernel {r['ms']:.4f} ms{q}, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}; the kernel at "
@@ -1286,7 +1308,7 @@ def _batch_phase(torch, np, card, check, tmp, phase5, room):
 def _sift_runner_chunks(torch, np, check, tmp, room, card):
     """Phase 8's simulator runner with --feature SIFT on phase 6's room at
     --chunk 16 and --chunk 8: per-pair R and `valid` equal, K7, K4 and P1
-    once per chunk, P2 79 times, P3 and P4 once per octave."""
+    once per chunk, P2 `P2_PER_CALL` times, P3 and P4 once per octave."""
     import io
 
     from rpe_tpu_torch.cli import run_simulator_data
@@ -2687,15 +2709,16 @@ def _main_path_samples(torch, dets, cfg, K, dev):
 
 
 def _record_p2(torch, run):
-    """The operands (a, b), b None for a row sum, of every P2 launch that
-    `run()` makes, copied as the launch got them, and the bytes each
-    launch must read: the distinct float32 elements its operands address,
-    an element that a and b share (A^T @ A, E^T @ E) or that a broadcast
-    repeats counted once."""
+    """The terms of every P2 launch that `run()` makes (geometry/
+    _products.py `fixed_order_group`: (a, b), (a, None) for a row sum,
+    (a, a2, b) for a chain), copied as the launch got them, and the bytes
+    each launch must read: the distinct float32 elements its operands
+    address, an element that two operands share (A^T @ A, E^T @ E, the U
+    of both rotations) or that a broadcast repeats counted once."""
     from rpe_tpu_torch.geometry import _products as prods
 
-    ops, reads = [], []
-    bmm, rsum = prods.fixed_order_bmm, prods.fixed_order_sum
+    launches, reads = [], []
+    group = prods.fixed_order_group
 
     def addresses(x):
         off = torch.full((), x.storage_offset(), dtype=torch.int64,
@@ -2706,7 +2729,7 @@ def _record_p2(torch, run):
             off = off + torch.arange(n, device=x.device).view(view) * st
         return off.reshape(-1)
 
-    def distinct(*xs):
+    def distinct(xs):
         by_storage = {}
         for x in xs:
             by_storage.setdefault(x.untyped_storage().data_ptr(), []).append(
@@ -2714,81 +2737,104 @@ def _record_p2(torch, run):
         return sum(int(torch.unique(torch.cat(v)).numel())
                    for v in by_storage.values())
 
-    def rec_bmm(a, b):
-        ops.append((a.clone(), b.clone()))
-        reads.append(4 * distinct(a, b))
-        return bmm(a, b)
+    def rec_group(terms):
+        launches.append([tuple(None if x is None else x.clone() for x in t)
+                         for t in terms])
+        reads.append(4 * distinct([x for t in terms for x in t
+                                    if x is not None]))
+        return group(terms)
 
-    def rec_sum(x):
-        ops.append((x.clone(), None))
-        reads.append(4 * distinct(x))
-        return rsum(x)
-
-    prods.fixed_order_bmm, prods.fixed_order_sum = rec_bmm, rec_sum
+    prods.fixed_order_group = rec_group
     try:
         with torch.no_grad():
             run()
     finally:
-        prods.fixed_order_bmm, prods.fixed_order_sum = bmm, rsum
-    return ops, reads
+        prods.fixed_order_group = group
+    return launches, reads
 
 
-def _p2_run(a, b):
+def _p2_run(terms):
+    """One P2 launch of the recorded terms."""
     from rpe_tpu_torch.geometry import _products as prods
 
-    return prods.fixed_order_sum(a) if b is None \
-        else prods.fixed_order_bmm(a, b)
+    return prods.fixed_order_group(terms)
 
 
-def _p2_plain(a, b):
+def _p2_plain(terms):
+    """The same terms as PyTorch computes them: torch.matmul (a chain as
+    two), .sum(-1)."""
     import torch
 
-    return a.sum(-1) if b is None else torch.matmul(a, b)
+    return [t[0].sum(-1) if t[1] is None else torch.matmul(t[0], t[1])
+            if len(t) == 2 else torch.matmul(t[0], torch.matmul(t[1], t[2]))
+            for t in terms]
 
 
-def _op_shape(op):
-    a, b = op
-    return (tuple(a.shape), None if b is None else tuple(b.shape))
+def _p2_serial(t):
+    """tests/torch_judges.py `p2_serial` of one term."""
+    from torch_judges import p2_serial
+
+    return p2_serial(t[0], t[1]) if len(t) == 2 else p2_serial(
+        t[0], t[2], a2=t[1])
 
 
-def _p2_contract(torch, ops, reads):
-    """P2 on each recorded operation against torch.matmul / .sum(-1) and
-    the float64 product (tests/torch_judges.py `p2_judge`): (all held; the
-    largest absolute difference from the plain; the largest relative
-    errors of `p2_judge`; bit-equal with the batch split in two along its
-    first axis; the bytes read (`reads`, from `_record_p2`) and written
-    once; the float operations)."""
+def _op_shape(terms):
+    return tuple(tuple(None if x is None else tuple(x.shape) for x in t)
+                 for t in terms)
+
+
+def _p2_contract(torch, launches, reads):
+    """P2 on each recorded launch, term by term: bit-equal to the serial
+    float64 reference (`_p2_serial`); against torch.matmul / .sum(-1) and
+    the float64 product of its operands (tests/torch_judges.py `p2_judge`,
+    a chain's outer product taken of the reference's inner one); bit-equal
+    with the batch split in two along its first axis. Returns (all held
+    to p2_judge; the largest absolute difference from the plain; the
+    largest relative errors of `p2_judge`; terms that differ from the
+    serial reference; split held; the bytes read (`reads`, from
+    `_record_p2`) and written once; the float operations)."""
     from torch_judges import p2_judge
 
     ok, err, split, nbytes, flops = True, 0.0, True, sum(reads), 0
+    serial_diff = 0
     rels = [0.0, 0.0, 0.0]
-    for a, b in ops:
-        got, want = _p2_run(a, b), _p2_plain(a, b)
-        if b is None:
-            exact, scale = a.double().sum(-1), a.abs().double().sum(-1)
-        else:
-            exact = torch.matmul(a.double(), b.double())
-            scale = torch.matmul(a.abs().double(), b.abs().double())
-        fine, *r = p2_judge(got, want, exact, scale)
-        ok = ok and fine
-        rels = [max(x, y) for x, y in zip(rels, r)]
-        d = (got - want).abs()
-        err = max(err, float(torch.nan_to_num(d, nan=0.0).max()))
-        n0 = got.shape[0] if got.dim() else 1
-        if n0 > 1:
+    for terms in launches:
+        gots = _p2_run(terms)
+        for t, got, want in zip(terms, gots, _p2_plain(terms)):
+            ref = _p2_serial(t)
+            serial_diff += int(not torch.equal(got, ref))
+            a = t[0]
+            b = t[1] if len(t) == 2 else _p2_serial(t[1:])
+            if b is None:
+                exact, scale = a.double().sum(-1), a.abs().double().sum(-1)
+            else:
+                exact = torch.matmul(a.double(), b.double())
+                scale = torch.matmul(a.abs().double(), b.abs().double())
+            fine, *r = p2_judge(got, want, exact, scale)
+            ok = ok and fine
+            rels = [max(x, y) for x, y in zip(rels, r)]
+            d = (got - want).abs()
+            err = max(err, float(torch.nan_to_num(d, nan=0.0).max()))
+            nbytes += 4 * got.numel()
+            k = a.shape[-1]
+            flops += got.numel() * (k if b is None else 2 * k)
+            if len(t) == 3:
+                flops += _p2_serial(t[1:]).numel() * 2 * t[1].shape[-1]
+        n0 = gots[0].shape[0] if gots[0].dim() else 1
+        if n0 > 1 and all(g.dim() and g.shape[0] == n0 for g in gots):
             h = n0 // 2
 
-            def cut(x, sl):
+            def cut(x, got, row_sum, sl):
                 return x[sl] if x is not None and x.dim() == got.dim() + (
-                    b is None) and x.shape[0] == n0 else x
+                    row_sum) and x.shape[0] == n0 else x
 
-            parts = [_p2_run(cut(a, sl), cut(b, sl))
+            parts = [_p2_run([tuple(cut(x, g, t[1] is None, sl) for x in t)
+                              for t, g in zip(terms, gots)])
                      for sl in (slice(0, h), slice(h, n0))]
-            split = split and torch.equal(torch.cat(parts), got)
-        nbytes += 4 * got.numel()
-        k = a.shape[-1]
-        flops += got.numel() * (k if b is None else 2 * k)
-    return ok, err, rels, split, nbytes, flops
+            split = split and all(
+                torch.equal(torch.cat([p[j] for p in parts]), g)
+                for j, g in enumerate(gots))
+    return ok, err, rels, serial_diff, split, nbytes, flops
 
 
 def _exact_minimal_coeffs(np, torch, fp, b, dev):

@@ -17,13 +17,25 @@
 //     planes (bilinear: rows, then columns), their magnitude, angle, bin
 //     and Gaussian-windowed term into shared memory; lane b then sums the
 //     terms of bin b (and b + 32) over the samples in ascending order.
-//   P4 `desc_kernel`: lanes compute each sample's rotated bin coordinates
-//     and its trilinear weights (two row, two column, two orientation bins)
-//     into shared memory, 192 samples at a time; lane l owns column bin
-//     l / 8, orientation bin l % 8 and the four row bins, and sums its four
-//     outputs over the samples in ascending order. The 128 sums are then
-//     normalised, clipped at 0.2 and renormalised, each norm summed over
-//     the 128 values in ascending order by every lane alike.
+//   P4 `desc_kernel`: a block of four warps owns one slot. Its 128
+//     threads compute the samples in rounds of 128: each sample's rotated
+//     bin coordinates and trilinear weights (two row, two column and two
+//     orientation bins). Each sample appends itself, with the product of
+//     its row and column weights, to the list of every cell (row bin,
+//     column bin) where both are non-zero -- at most 2 x 2 cells -- at a
+//     place that keeps each list in ascending sample order: the entries of
+//     the rounds before, of the warps before it in this round (their
+//     counts, by ballot, in shared memory) and of the lanes before it (a
+//     ballot). A list holds at most 60 of the 576 samples (the grid points
+//     inside a rotated square of 2 x 2 bins, 6.79 samples a side; 50 at
+//     most over a sweep of the angle). Thread (w, l) then owns output
+//     32 w + l (row bin w, column bin l / 8, orientation bin l % 8) and
+//     walks its cell's list, adding the samples whose orientation weight
+//     for its bin is non-zero. The 128 sums are then normalised, clipped at
+//     0.2 and renormalised, each norm summed over the 128 values in
+//     ascending order by one thread. Each output sums the same non-zero
+//     terms in the same order as a walk over all 576 samples would, so
+//     its bits are that walk's.
 //
 // Sums are carried in float64 and rounded once to float32, as P2 does;
 // the bilinear sample is formed in float64 from its four exact products
@@ -41,7 +53,10 @@
 // gradient patches (at most 48 x 48 of the 80 x 80, read through L1),
 // the per-slot scalars and the outputs; the float64 sums and atan2f make
 // the work a few thousand operations a slot, well under the byte time at
-// the main path's 27,216 slots of octave 0.
+// the main path's 27,216 slots of octave 0. P4 is held back by issue
+// slots instead: a sample reaches 8 of the 128 outputs, so the lists spare
+// each output a walk over all 576 samples; it visits its cell's ~46 and
+// adds ~12 terms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,8 +69,10 @@ constexpr int G = 24;               // sample grid side, both windows
 constexpr int NS = G * G;           // 576 samples
 constexpr int ORI_BINS = 36;
 constexpr int DESC_N = 128;         // 4 x 4 x 8
-constexpr int WARPS = 4;            // slots per block
-constexpr int CHUNK = 192;          // descriptor samples staged per pass
+constexpr int WARPS = 4;            // P3: slots per block; P4: warps per slot
+constexpr int DESC_D = 4;           // P4's row and column bins
+constexpr int CELLS = DESC_D * DESC_D;
+constexpr int CAP = 64;             // a cell's list: at most 60 samples
 
 // the plain version's Python constants, rounded to float32 as PyTorch
 // rounds a Python float for a float32 operation
@@ -211,39 +228,52 @@ desc_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
             const float* __restrict__ scl, const float* __restrict__ theta,
             const float* __restrict__ tab, float* __restrict__ desc,
             float* __restrict__ samples, float* __restrict__ raw,
-            long long n, long long q, long long q_src, int py, int px) {
-    __shared__ Taps s_taps[WARPS];
-    // per staged sample: two row, two column and two orientation bins
-    // with their weights (the orientation ones times the sample's term)
-    __shared__ unsigned char s_rb[WARPS][2][CHUNK], s_cb[WARPS][2][CHUNK],
-        s_ob[WARPS][2][CHUNK];
-    __shared__ float s_rw[WARPS][2][CHUNK], s_cw[WARPS][2][CHUNK],
-        s_ow[WARPS][2][CHUNK];
-    __shared__ float s_d[WARPS][DESC_N];
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const long long slot = (long long)blockIdx.x * WARPS + warp;
-    if (slot >= n) return;              // the whole warp: no block barrier
-    Taps& t = s_taps[warp];
+            long long q, long long q_src, int py, int px) {
+    __shared__ Taps s_taps;
+    // per sample: orientation bins o0, o1 and the sample's term times
+    // their weights
+    __shared__ uchar2 s_ob[NS];
+    __shared__ float2 s_ow[NS];
+    // per cell (row bin r, column bin c: 4 r + c): its samples in
+    // ascending order and their row weight times column weight (strides
+    // padded so that the cells of a warp's lanes spread over the banks)
+    __shared__ unsigned short s_idx[CELLS][CAP + 2];
+    __shared__ float s_rc[CELLS][CAP + 1];
+    __shared__ int s_cnt[WARPS][CELLS];     // a round's entries per warp
+    __shared__ int s_off[WARPS][CELLS];     // where a warp's entries go
+    __shared__ int s_len[CELLS];            // entries of all rounds so far
+    __shared__ float s_d[DESC_N];
+    __shared__ float s_nrm;
+    const unsigned FULL = 0xffffffffu;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const unsigned below = (1u << lane) - 1u;
+    const long long slot = blockIdx.x;
     const float th = theta[slot];
     const float ca = cosf(th), sa = sinf(th);
     // hist_width * sqrt(2) * (d + 1) * 0.5, hist_width = 3.0 * scl
     const float radius = scl[slot] * 3.0f * SQRT2 * 5.0f * 0.5f;
-    grid_taps(t, lane, tab + TAB_DESC_LIN, ucx[slot], ucy[slot], radius, py,
-              px);
+    grid_taps(s_taps, tid, tab + TAB_DESC_LIN, ucx[slot], ucy[slot], radius,
+              py, px);
+    if (tid < CELLS) s_len[tid] = 0;
+    __syncthreads();
     const long long plane = (long long)py * px;
     const long long src = (slot / q) * q_src + pidx[slot];
     const float* pgx = gx + src * plane;
     const float* pgy = gy + src * plane;
     const float* lin = tab + TAB_DESC_LIN;
     const float* win = tab + TAB_DESC_W;
-    const int my_c = lane >> 3, my_o = lane & 7;   // outputs 32 r + lane
-    double acc[4] = {0.0, 0.0, 0.0, 0.0};
-    for (int c0 = 0; c0 < NS; c0 += CHUNK) {
-        for (int k = lane; k < CHUNK; k += 32) {
-            const int s = c0 + k;
+    // rounds of 128 samples, thread t taking sample s0 + t; each round
+    // appends its samples to the lists of the cells they reach, in
+    // ascending order: warps by the counts of the warps before them, lanes
+    // by a ballot
+    for (int s0 = 0; s0 < NS; s0 += WARPS * 32) {
+        const int s = s0 + tid;
+        int r0 = 0, r1 = 0, q0 = 0, q1 = 0;
+        float rw0 = 0.0f, rw1 = 0.0f, cw0 = 0.0f, cw1 = 0.0f;
+        if (s < NS) {
             const int i = s / G, j = s - (s / G) * G;
-            const float vx = sample(t, pgx, px, i, j);
-            const float vy = sample(t, pgy, px, i, j);
+            const float vx = sample(s_taps, pgx, px, i, j);
+            const float vy = sample(s_taps, pgy, px, i, j);
             const float mag = sqrtf(vx * vx + vy * vy);
             const float ang = atan2f(vy, vx) - th;
             const float gxg = lin[j], gyg = lin[i];
@@ -251,69 +281,104 @@ desc_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
             const float gyr = -gxg * sa + gyg * ca;
             const float rbin = gyr * SQRT2 * 5.0f * 0.5f + 2.0f - 0.5f;
             const float cbin = gxr * SQRT2 * 5.0f * 0.5f + 2.0f - 0.5f;
-            // cv2's descriptor gradients are y-up: the relative angle negated
+            // cv2's descriptor gradients are y-up: the relative angle
+            // negated
             const float obin = remainder_pos(-ang / TWO_PI * 8.0f, 8.0f);
             const float w = mag * win[s];
-            int r0, r1, q0, q1, o0, o1;
-            float rw0, rw1, cw0, cw1, ow0, ow1;
-            tri(rbin, 4, false, r0, rw0, r1, rw1);
-            tri(cbin, 4, false, q0, cw0, q1, cw1);
+            int o0, o1;
+            float ow0, ow1;
+            tri(rbin, DESC_D, false, r0, rw0, r1, rw1);
+            tri(cbin, DESC_D, false, q0, cw0, q1, cw1);
             tri(obin, 8, true, o0, ow0, o1, ow1);
-            s_rb[warp][0][k] = (unsigned char)r0;
-            s_rb[warp][1][k] = (unsigned char)r1;
-            s_cb[warp][0][k] = (unsigned char)q0;
-            s_cb[warp][1][k] = (unsigned char)q1;
-            s_ob[warp][0][k] = (unsigned char)o0;
-            s_ob[warp][1][k] = (unsigned char)o1;
-            s_rw[warp][0][k] = rw0;
-            s_rw[warp][1][k] = rw1;
-            s_cw[warp][0][k] = cw0;
-            s_cw[warp][1][k] = cw1;
-            s_ow[warp][0][k] = w * ow0;
-            s_ow[warp][1][k] = w * ow1;
+            s_ob[s] = make_uchar2(o0, o1);
+            s_ow[s] = make_float2(w * ow0, w * ow1);
             if (DETAIL) {
                 samples[slot * 2 * NS + s] = vx;
                 samples[slot * 2 * NS + NS + s] = vy;
             }
         }
-        __syncwarp();
-        for (int k = 0; k < CHUNK; ++k) {
-            // the one-hot products of the plain version: C[c] and wO[o]
-            // (a bin's two weights meet only where one of them is 0)
-            const float cc = (s_cb[warp][0][k] == my_c ? s_cw[warp][0][k] : 0.0f)
-                + (s_cb[warp][1][k] == my_c ? s_cw[warp][1][k] : 0.0f);
-            const float wo = s_ob[warp][0][k] == my_o ? s_ow[warp][0][k]
-                : (s_ob[warp][1][k] == my_o ? s_ow[warp][1][k] : 0.0f);
-            if (cc == 0.0f || wo == 0.0f) continue;
-            const int r0 = s_rb[warp][0][k], r1 = s_rb[warp][1][k];
-            const float rw0 = s_rw[warp][0][k], rw1 = s_rw[warp][1][k];
+        // the plain version's one-hot products R[b] and C[b] of this
+        // sample (0 past the grid): lane b holds the warp's ballot of
+        // R[b] != 0, lane 4 + b that of C[b] != 0 (a bin's two weights
+        // meet only where one of them is 0)
+        unsigned hold = 0;
 #pragma unroll
-            for (int r = 0; r < 4; ++r) {
-                const float rr = (r0 == r ? rw0 : 0.0f) + (r1 == r ? rw1 : 0.0f);
-                if (rr != 0.0f) acc[r] += (double)(rr * cc) * (double)wo;
+        for (int b = 0; b < DESC_D; ++b) {
+            const float rr = (r0 == b ? rw0 : 0.0f) + (r1 == b ? rw1 : 0.0f);
+            const float cc = (q0 == b ? cw0 : 0.0f) + (q1 == b ? cw1 : 0.0f);
+            const unsigned mr = __ballot_sync(FULL, rr != 0.0f);
+            const unsigned mc = __ballot_sync(FULL, cc != 0.0f);
+            hold = lane == b ? mr : lane == DESC_D + b ? mc : hold;
+        }
+        const unsigned cellm = __shfl_sync(FULL, hold, (lane >> 2) & 3)
+            & __shfl_sync(FULL, hold, DESC_D + (lane & 3));
+        if (lane < CELLS) s_cnt[warp][lane] = __popc(cellm);
+        __syncthreads();
+        if (tid < CELLS) {
+            int run = s_len[tid];
+#pragma unroll
+            for (int w = 0; w < WARPS; ++w) {
+                s_off[w][tid] = run;
+                run += s_cnt[w][tid];
+            }
+            s_len[tid] = run;
+        }
+        __syncthreads();
+        // this sample's entries: the (at most) 2 x 2 cells it reaches
+        const unsigned mr0 = __shfl_sync(FULL, hold, r0);
+        const unsigned mr1 = __shfl_sync(FULL, hold, r1);
+        const unsigned mc0 = __shfl_sync(FULL, hold, DESC_D + q0);
+        const unsigned mc1 = __shfl_sync(FULL, hold, DESC_D + q1);
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+            const int r = a ? r1 : r0;
+            const unsigned mr = a ? mr1 : mr0;
+            const float rr = (r0 == r ? rw0 : 0.0f) + (r1 == r ? rw1 : 0.0f);
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+                const int c = b ? q1 : q0;
+                const unsigned mc = b ? mc1 : mc0;
+                const float cc = (q0 == c ? cw0 : 0.0f)
+                    + (q1 == c ? cw1 : 0.0f);
+                const bool once = (a == 0 || r1 != r0) && (b == 0 || q1 != q0);
+                if (once && rr != 0.0f && cc != 0.0f) {
+                    const int cell = DESC_D * r + c;
+                    const int at = s_off[warp][cell] + __popc(mr & mc & below);
+                    if (at < CAP) {
+                        s_idx[cell][at] = (unsigned short)s;
+                        s_rc[cell][at] = rr * cc;
+                    }
+                }
             }
         }
-        __syncwarp();
     }
-    float d[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        d[r] = (float)acc[r];
-        s_d[warp][32 * r + lane] = d[r];
-        if (DETAIL) raw[slot * DESC_N + 32 * r + lane] = d[r];
+    __syncthreads();
+    // output 32 w + lane (row bin r = w, column bin c, orientation bin o):
+    // its cell's samples in ascending order, each where the orientation
+    // one-hot wO[o] is non-zero
+    const int r = warp, c = lane >> 3, o = lane & 7, cell = DESC_D * r + c;
+    const int len = s_len[cell];
+    double acc = 0.0;
+    for (int k = 0; k < min(len, CAP); ++k) {
+        const int s = s_idx[cell][k];
+        const uchar2 ob = s_ob[s];
+        const float2 ow = s_ow[s];
+        const float wo = ob.x == o ? ow.x : (ob.y == o ? ow.y : 0.0f);
+        if (wo != 0.0f) acc += (double)s_rc[cell][k] * (double)wo;
     }
-    __syncwarp();
-    const float nrm = norm128(s_d[warp]);
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        d[r] = fminf(d[r] / nrm, CLIP);
-        s_d[warp][32 * r + lane] = d[r];
-    }
-    __syncwarp();
-    const float nrm2 = norm128(s_d[warp]);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) desc[slot * DESC_N + 32 * r + lane] = d[r] / nrm2;
+    // more samples than a list holds (only a non-finite angle): no result
+    float d = len > CAP ? __int_as_float(0x7fc00000) : (float)acc;
+    s_d[tid] = d;
+    if (DETAIL) raw[slot * DESC_N + tid] = d;
+    __syncthreads();
+    if (tid == 0) s_nrm = norm128(s_d);
+    __syncthreads();
+    d = fminf(d / s_nrm, CLIP);
+    s_d[tid] = d;
+    __syncthreads();
+    if (tid == 0) s_nrm = norm128(s_d);
+    __syncthreads();
+    desc[slot * DESC_N + tid] = d / s_nrm;
 }
 
 int grid_for(long long n, unsigned& blocks) {
@@ -361,17 +426,17 @@ extern "C" int sift_descriptor_launch(
     if (py < 4 || px < 4 || q <= 0 || q_src <= 0
             || (samples == nullptr) != (raw == nullptr))
         return (int)cudaErrorInvalidValue;
-    unsigned blocks;
-    if (int rc = grid_for(n, blocks)) return rc;
+    if (n > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    const unsigned blocks = (unsigned)n;           // a block per slot
     cudaStream_t st = (cudaStream_t)stream;
     if (samples != nullptr)
         desc_kernel<true><<<blocks, WARPS * 32, 0, st>>>(
-            gx, gy, pidx, ucx, ucy, scl, theta, tab, desc, samples, raw, n, q,
+            gx, gy, pidx, ucx, ucy, scl, theta, tab, desc, samples, raw, q,
             q_src, py, px);
     else
         desc_kernel<false><<<blocks, WARPS * 32, 0, st>>>(
             gx, gy, pidx, ucx, ucy, scl, theta, tab, desc, nullptr, nullptr,
-            n, q, q_src, py, px);
+            q, q_src, py, px);
     return (int)cudaGetLastError();
 }
 

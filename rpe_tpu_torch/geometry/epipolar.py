@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from ._products import matmul
+from ._products import matmul, matmuls
 from .eig import _cross
 
 _EPS = 1e-12
@@ -59,18 +59,19 @@ def _det3(M):
                               - M[..., 1, 1] * M[..., 2, 0]))
 
 
-def project_to_essential(E):
-    """Project E onto the essential manifold (singular values 1, 1, 0)
-    through the closed-form eigendecomposition of E^T E. Returns
-    (E_proj, U, Vt), U and Vt proper rotations. The products are P2's on
-    the card."""
+def essential_frame(E):
+    """The rotations (U, Vt) of E's projection onto the essential manifold
+    (`project_to_essential`), proper rotations, without forming the
+    projection. The products are P2's on the card: E^T E, then E v0 and
+    E v1 in one launch."""
     from .eig import eigh3x3_desc
 
     EtE = matmul(E.transpose(-1, -2), E)
     evals, V = eigh3x3_desc(EtE)
     s = torch.sqrt(torch.clamp_min(evals, 0.0))
-    u0 = matmul(E, V[..., :, 0:1])[..., 0] / (s[..., 0:1] + _EPS)
-    u1 = matmul(E, V[..., :, 1:2])[..., 0] / (s[..., 1:2] + _EPS)
+    Ev0, Ev1 = matmuls((E, V[..., :, 0:1]), (E, V[..., :, 1:2]))
+    u0 = Ev0[..., 0] / (s[..., 0:1] + _EPS)
+    u1 = Ev1[..., 0] / (s[..., 1:2] + _EPS)
     u0 = u0 / (torch.linalg.vector_norm(u0, dim=-1, keepdim=True) + _EPS)
     u1 = u1 - (u0 * u1).sum(-1, keepdim=True) * u0
     u1 = u1 / (torch.linalg.vector_norm(u1, dim=-1, keepdim=True) + _EPS)
@@ -81,11 +82,19 @@ def project_to_essential(E):
                    U[..., 2:] * torch.sign(_det3(U))[..., None, None]], dim=-1)
     V = torch.cat([V[..., :2],
                    V[..., 2:] * torch.sign(_det3(V))[..., None, None]], dim=-1)
-    Vt = V.transpose(-1, -2)
+    return U, V.transpose(-1, -2)
+
+
+def project_to_essential(E):
+    """Project E onto the essential manifold (singular values 1, 1, 0)
+    through the closed-form eigendecomposition of E^T E. Returns
+    (E_proj, U, Vt), U and Vt proper rotations. On the card the products
+    are P2's, E_proj = U (D Vt) a chain of one launch."""
+    U, Vt = essential_frame(E)
     D = torch.zeros_like(E)
     D[..., 0, 0] = 1.0
     D[..., 1, 1] = 1.0
-    E_proj = matmul(U, matmul(D, Vt))
+    (E_proj,) = matmuls((U, D, Vt))
     return E_proj, U, Vt
 
 

@@ -14,7 +14,7 @@ import math
 import torch
 
 from .. import rng
-from ._products import matmul, row_sum
+from ._products import matmul, matmuls, row_sum
 from .eig import _cross, smallest_eigvec_sym
 from .epipolar import normal_matrix, project_to_essential, \
     sampson_error_sq
@@ -132,7 +132,7 @@ def plane_parallax_essentials(key, H, pts1_n, pts2_n, offplane_mask,
                               num_hypotheses: int = 64):
     """Essential candidates F = [e']_x H with the epipole e' pinned by pairs
     of off-plane correspondences. Returns (E (P, Q, 3, 3), ok (P, Q)). The
-    products are P2's on the card."""
+    products are P2's on the card (the two lines' in one launch)."""
     from .ransac import gather_points, sample_minimal_indices
 
     idx = sample_minimal_indices(key, offplane_mask, num_hypotheses,
@@ -146,8 +146,9 @@ def plane_parallax_essentials(key, H, pts1_n, pts2_n, offplane_mask,
     xb1 = h1(gather_points(pts1_n, idx[..., 1]))
     xb2 = h1(gather_points(pts2_n, idx[..., 1]))
     Ht = H.transpose(-1, -2)[:, None]
-    la = _cross(matmul(xa1[..., None, :], Ht)[..., 0, :], xa2)
-    lb = _cross(matmul(xb1[..., None, :], Ht)[..., 0, :], xb2)
+    ha, hb = matmuls((xa1[..., None, :], Ht), (xb1[..., None, :], Ht))
+    la = _cross(ha[..., 0, :], xa2)
+    lb = _cross(hb[..., 0, :], xb2)
     e = _cross(la, lb)
     en = torch.linalg.vector_norm(e, dim=-1)
     ok = torch.isfinite(en) & (en > 1e-9)

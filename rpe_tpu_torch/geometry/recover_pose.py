@@ -10,31 +10,32 @@ from __future__ import annotations
 
 import torch
 
-from ._products import matmul
-from .epipolar import project_to_essential
+from ._products import matmuls
+from .epipolar import essential_frame
 
 _EPS = 1e-12
 
 
 def decompose_essential(E):
     """E (..., 3, 3) -> (R1, R2, t): R1 = U W Vt, R2 = U W^T Vt, t = U[:, 2]
-    (the products P2's on the card)."""
-    _, U, Vt = project_to_essential(E)
+    (U, Vt those of `project_to_essential`, whose projection is not formed;
+    on the card the products are P2's, R1 and R2 two chains of one
+    launch)."""
+    U, Vt = essential_frame(E)
     W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
                      dtype=E.dtype, device=E.device)
-    R1 = matmul(U, matmul(W, Vt))
-    R2 = matmul(U, matmul(W.T, Vt))
+    R1, R2 = matmuls((U, W, Vt), (U, W.T, Vt))
     return R1, R2, U[..., :, 2]
 
 
 def triangulate_depths(R, t, pts1_n, pts2_n):
     """Midpoint-method depths (z1, z2) (..., N) of the points under pose
     (R (..., 3, 3), t (..., 3)); pts (..., N, 2) broadcast against R. The
-    products are P2's on the card."""
+    products are P2's on the card, both in one launch."""
     x1 = torch.cat([pts1_n, torch.ones_like(pts1_n[..., :1])], dim=-1)
     x2 = torch.cat([pts2_n, torch.ones_like(pts2_n[..., :1])], dim=-1)
-    b = matmul(x2, R)                              # R^T x2, (..., N, 3)
-    c = matmul(t[..., None, :], R)                 # R^T t, (..., 1, 3)
+    # R^T x2 (..., N, 3) and R^T t (..., 1, 3)
+    b, c = matmuls((x2, R), (t[..., None, :], R))
     a = x1
     aa = (a * a).sum(-1)
     bb = (b * b).sum(-1)

@@ -77,12 +77,14 @@ KERNELS = {
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# P1 launches once per estimator call, P2 once at each of the geometry's
-# fixed-order products and sums (geometry/_products.py), a number fixed by
-# the path (tests/test_torch_batch_invariance.py counts them on the CPU)
-P2_PER_CALL = 79            # default RANSAC: 5-point, DEGENSAC, 2 refits
-P2_PER_CALL_LO = 109        # RansacConfig(lo=True)
-P2_PAIRS_2D = 147           # estimate_pairs_2d on a (1, 2) mesh: RANSAC on
+# P1 launches once per estimator call, P2 once at each call of the
+# geometry's fixed-order helpers (geometry/_products.py `matmul`, `row_sum`,
+# and `matmuls`, which takes up to four products in one launch), a number
+# fixed by the path (tests/test_torch_batch_invariance.py counts them on
+# the CPU)
+P2_PER_CALL = 43            # default RANSAC: 5-point, DEGENSAC, 2 refits
+P2_PER_CALL_LO = 63         # RansacConfig(lo=True)
+P2_PAIRS_2D = 82            # estimate_pairs_2d on a (1, 2) mesh: RANSAC on
                             # each hyp shard, recover_pose once
 
 

@@ -493,13 +493,40 @@ def _orientation_terms(vx, vy):
     return bins, mag * ori_w
 
 
+def _frame_by_frame(fn, *xs, **kw):
+    """fn(*xs) one frame (leading index) at a time, the outputs joined.
+
+    On the CPU an elementwise operation splits its range across threads,
+    and an element that falls in the scalar tail of a thread's piece is
+    computed by the scalar function (std::atan2) instead of the vectorised
+    one (SLEEF's), which may differ in the last bit: with several threads
+    the split, and so a frame's bits, depended on the number of frames in
+    the call. One frame at a time every operation has the same shape
+    whatever that number (with one thread the same bits as the whole
+    batch at once)."""
+    if xs[0].shape[0] <= 1:
+        return fn(*xs, **kw)
+    outs = [fn(*(x[f:f + 1] for x in xs), **kw)
+            for f in range(xs[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o) for o in zip(*outs))
+    return torch.cat(outs)
+
+
 def orientation_hist_plain(gxp, gyp, ucx, ucy, scl, detail: bool = False):
     """Plain version of P3: the 36-bin orientation histogram (F, Q, 36) of
     each keypoint before smoothing, from gxp/gyp (F, Q, Py, Px) in-patch
     gradients of the keypoint's layer, ucx/ucy (F, Q) in-patch centre and
     scl (F, Q) octave-coordinate scale. The sum over the 576 samples is a
-    float32 matmul against the bins' one-hot. With `detail`, also the
-    samples vx, vy (F, Q, 24, 24) and the bins (F, Q, 576) uint8."""
+    float32 matmul against the bins' one-hot; frame by frame, so a
+    frame's bits do not depend on the batch (`_frame_by_frame`). With
+    `detail`, also the samples vx, vy (F, Q, 24, 24) and the bins
+    (F, Q, 576) uint8."""
+    return _frame_by_frame(_orientation_hist_frames, gxp, gyp, ucx, ucy, scl,
+                           detail=detail)
+
+
+def _orientation_hist_frames(gxp, gyp, ucx, ucy, scl, detail: bool):
     vx, vy = _orientation_samples(gxp, gyp, ucx, ucy, scl)
     bins, w = _orientation_terms(vx, vy)
     lead = w.shape[:-2]
@@ -606,7 +633,14 @@ def descriptor_plain(gxp, gyp, ucx, ucy, scl, theta, detail: bool = False):
     as cv2 discards them). gxp/gyp (F, Q, Py, Px) the keypoint's own
     patch gradients; ucx, ucy, scl, theta (F, Q). Returns (F, Q, 128)
     float32, unit norm after clipping at 0.2; with `detail`, also the
-    samples vx, vy (F, Q, 24, 24) and the 128 sums before normalising."""
+    samples vx, vy (F, Q, 24, 24) and the 128 sums before normalising.
+    Frame by frame, so a frame's bits do not depend on the batch
+    (`_frame_by_frame`)."""
+    return _frame_by_frame(_descriptor_frames, gxp, gyp, ucx, ucy, scl,
+                           theta, detail=detail)
+
+
+def _descriptor_frames(gxp, gyp, ucx, ucy, scl, theta, detail: bool):
     Py, Px = gxp.shape[-2:]
     dev = gxp.device
     g, d = _DESC_GRID, _DESC_D

@@ -35,8 +35,8 @@ from rpe_tpu_torch.pipeline.estimator import PoseEstimator, estimate_pair, \
 from rpe_tpu_torch.utils.synthetic import float_descriptors, make_sequence, \
     rotation_error_deg
 from torch_gates import default_extraction_gates  # noqa: F401
-from torch_judges import p1_judge, p2_judge, p3_judge, p3_references, \
-    p4_judge
+from torch_judges import p1_judge, p2_judge, p2_serial, p3_judge, \
+    p3_references, p4_judge
 
 pytestmark = pytest.mark.gpu
 
@@ -941,6 +941,58 @@ def test_fixed_order_bmm_matches_matmul_and_its_split(cuda, site):
     assert torch.equal(torch.cat(parts), got)
 
 
+# the terms of P2's grouped and chained launches at 8 pairs
+# (geometry/_products.py `matmuls`): (a, b) shapes for a @ b, (a, a2, b) for
+# the chain a @ (a2 @ b)
+P2_GROUPS = {
+    "project E v0, E v1": (((8, 2560, 3, 3), (8, 2560, 3, 1)),
+                           ((8, 2560, 3, 3), (8, 2560, 3, 1))),
+    "project U (D Vt)": (((8, 2560, 3, 3), (8, 2560, 3, 3),
+                          (8, 2560, 3, 3)),),
+    "decompose U (W Vt), U (W^T Vt)": (((8, 16, 3, 3), (3, 3),
+                                        (8, 16, 3, 3)),
+                                       ((8, 16, 3, 3), (3, 3),
+                                        (8, 16, 3, 3))),
+    "triangulate x2 R, t R": (((8, 1, 1, 500, 3), (8, 16, 4, 3, 3)),
+                              ((8, 16, 4, 1, 3), (8, 16, 4, 3, 3))),
+    "parallax xa H^T, xb H^T": (((8, 64, 1, 3), (8, 1, 3, 3)),
+                                ((8, 64, 1, 3), (8, 1, 3, 3))),
+}
+
+
+def _serial(t):
+    return p2_serial(t[0], t[1]) if len(t) == 2 else p2_serial(
+        t[0], t[2], a2=t[1])
+
+
+@pytest.mark.parametrize("site", sorted(P2_GROUPS) + sorted(P2_SITES))
+def test_fixed_order_launches_are_the_serial_reference(cuda, site):
+    """Each grouped, chained or single P2 launch at a call site's shapes
+    in one launch, every product bit-equal to the serial float64 loop over
+    k (tests/torch_judges.py `p2_serial`), and to itself when the pairs
+    are split in two calls."""
+    from rpe_tpu_torch.geometry import _products as prods
+
+    shapes = P2_GROUPS.get(site) or (P2_SITES[site],)
+    g = np.random.default_rng(len(site))
+    terms = [tuple(torch.from_numpy(g.normal(size=sh).astype(np.float32))
+                   .to(cuda) for sh in t) for t in shapes]
+    n0 = kernels.LAUNCHES["fixed_order_bmm"]
+    got = prods.matmuls(*terms)
+    assert kernels.LAUNCHES["fixed_order_bmm"] == n0 + 1
+    for t, r in zip(terms, got):
+        assert torch.equal(r, _serial(t))
+
+    def cut(x, r, sl):
+        return x[sl] if x.dim() == r.dim() and x.shape[0] == 8 else x
+
+    parts = [prods.matmuls(*(tuple(cut(x, r, sl) for x in t)
+                             for t, r in zip(terms, got)))
+             for sl in (slice(0, 4), slice(4, 8))]
+    for j, r in enumerate(got):
+        assert torch.equal(torch.cat([p[j] for p in parts]), r)
+
+
 @pytest.mark.parametrize("shape", [(8, 500), (1, 500), (8, 9, 500)])
 def test_fixed_order_row_sums_match_sum_and_their_split(cuda, shape):
     """P2's row-sum mode (gric_score's sum over the matches) against
@@ -952,6 +1004,7 @@ def test_fixed_order_row_sums_match_sum_and_their_split(cuda, shape):
     got = prods.row_sum(x)
     assert p2_judge(got, x.sum(-1), x.double().sum(-1),
                     x.abs().double().sum(-1))[0]
+    assert torch.equal(got, p2_serial(x))
     if shape[0] > 1:
         assert torch.equal(torch.cat([prods.row_sum(x[:4]),
                                       prods.row_sum(x[4:])]), got)

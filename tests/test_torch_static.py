@@ -329,10 +329,11 @@ def _calls(fn):
 # by module: function -> the fixed-order helpers it must call
 FIXED_ORDER_SITES = {
     "epipolar.py": {"normal_matrix": {"matmul"},
-                    "project_to_essential": {"matmul"}},
-    "recover_pose.py": {"decompose_essential": {"matmul"},
-                        "triangulate_depths": {"matmul"}},
-    "homography.py": {"plane_parallax_essentials": {"matmul"},
+                    "essential_frame": {"matmul", "matmuls"},
+                    "project_to_essential": {"matmuls"}},
+    "recover_pose.py": {"decompose_essential": {"matmuls"},
+                        "triangulate_depths": {"matmuls"}},
+    "homography.py": {"plane_parallax_essentials": {"matmul", "matmuls"},
                       "gric_score": {"row_sum"}},
 }
 
@@ -359,8 +360,10 @@ def test_fixed_order_sites_reach_their_kernels():
     prod = _functions(geo / "_products.py")
     assert "fixed_order_bmm" in _calls(prod["matmul"])
     assert "fixed_order_sum" in _calls(prod["row_sum"])
+    assert "fixed_order_group" in _calls(prod["matmuls"])
     for name in ("fixed_order_bmm", "fixed_order_sum"):
-        assert "_launch" in _calls(prod[name])
+        assert "fixed_order_group" in _calls(prod[name])
+    assert "_launch" in _calls(prod["fixed_order_group"])
     assert "kernels.launch" in _calls(prod["_launch"])
 
 

@@ -3,7 +3,8 @@
 (csrc/sift_sample.cu) to their plain versions and to a float64 run,
 shared by chip_smoke.py and tests/test_torch_gpu.py:
 
-    from torch_judges import p1_judge, p2_judge, p3_judge, p4_judge
+    from torch_judges import p1_judge, p2_judge, p2_serial, p3_judge, \
+        p4_judge
 
 Only torch is needed, so chip_smoke.py can import this file on the card
 machine.
@@ -58,6 +59,30 @@ def p2_judge(got, want, exact, scale):
             if x.numel() else 0.0
 
     return bool(fine.all()), rel(dk), rel(dkp), rel(dp)
+
+
+def p2_serial(a, b=None, a2=None):
+    """P2's serial reference: every output f32(sum over k ascending of
+    f64(a) f64(b)), by a loop over k in float64 (a product of two float32
+    values is exact in float64, so each step rounds once, as the kernel's
+    fma does). a (..., m, k) @ b (..., k, n) with batch dimensions
+    broadcast; b None: the row sums of a (..., k); a2 given: the chain
+    a @ f32(a2 @ b). Bit for bit what P2 gives at any batch."""
+    if a2 is not None:
+        return p2_serial(a, p2_serial(a2, b))
+    x = a.double()
+    if b is None:
+        acc = torch.zeros(x.shape[:-1], dtype=torch.float64, device=x.device)
+        for q in range(x.shape[-1]):
+            acc = acc + x[..., q]
+        return acc.float()
+    y = b.double()
+    shape = torch.broadcast_shapes(x.shape[:-2], y.shape[:-2]) + (
+        x.shape[-2], y.shape[-1])
+    acc = torch.zeros(shape, dtype=torch.float64, device=x.device)
+    for q in range(x.shape[-1]):
+        acc = acc + x[..., :, q:q + 1] * y[..., q:q + 1, :]
+    return acc.float()
 
 
 def p3_references(gxp, gyp, ucx, ucy, scl):
