@@ -48,9 +48,10 @@ Phases (any failure exits non-zero before the final line):
      `p3_judge`: each bin within 1e-6 of its terms' magnitudes of the plain
      version and of a float64 run, slots where a sample's bin differs
      from the plain version's counted and capped at 1 per 1000, and held
-     within the moved samples' magnitudes; `p4_judge`: within 1e-5 of both
-     on every slot), each bit-equal with its frames and with its slots
-     split in two, timed per chunk (5 launches) with its bound;
+     within the moved samples' magnitudes; and bit-equal to
+     `p3_serial` of its own samples and bins; `p4_judge`: within 1e-5 of
+     both on every slot), each bit-equal with its frames and with its
+     slots split in two, timed per chunk (5 launches) with its bound;
   4. paths: `estimate_sequence_batched` on the 9 frames (8 pairs) at
      EstimatorConfig() (ORB, Hamming cross-check: K1-K4), SIFT with L2
      cross-check (config A: K7, K4, P3 and P4 once per octave), SIFT with
@@ -63,7 +64,9 @@ Phases (any failure exits non-zero before the final line):
      per level, 12 launches, K3, K4, no extraction kernel),
      RPE_NO_FUSED_ATLAS=1, RPE_BRIEF=cv2 (K2 in its wide, rounded mode),
      RPE_BRIEF=cv2 with RPE_EXTRACT_T_V7=1 (K12), RPE_BRIEF_QUANT=1 and
-     RansacConfig(lo=True). Every launch counter is reset just before
+     RansacConfig(lo=True), then RansacConfig(solver="8pt") (K1-K3 and P2:
+     no K4, no P1) and the ORB profiles orb2000 and orb1000
+     (`config.profile_config`). Every launch counter is reset just before
      each path and read just after; each path must launch exactly its
      kernels, each as often as stated (once unless counted). Each path runs its first 3 frames
      again with device="cpu" (plain versions), which must agree (equal
@@ -130,10 +133,12 @@ Phases (any failure exits non-zero before the final line):
      `initialize_distributed` on a loopback address, on the card's global
      mesh and on [cuda:0, cuda:0], equal to numpy's statistics; the group
      is destroyed after;
-  8. batch invariance: the ORB path (`estimate_sequence_batched`) on
-     phase 5's 33 frames at 32 pairs in one call, 16 + 16, 8 x 4 and
-     1 x 32: R, t, `valid`, `num_inliers` and `num_matches` bit-equal,
-     each split launching K1-K4 and P1 once per call; the KITTI runner on
+  8. batch invariance: the ORB path (`estimate_sequence_batched`), the
+     same with the 8-point solver and the orb2000 profile on phase 5's 33
+     frames at 32 pairs in one call, 16 + 16, 8 x 4 and 1 x 32: R, t,
+     `valid`, `num_inliers` and `num_matches` bit-equal, each split
+     launching K1-K4 and P1 once per call (the 8-point solver K1-K3); the
+     KITTI runner on
      phase 5's PNGs at --chunk 32 against phase 5's --chunk 16: per-pair R,
      `valid` and the ATE equal; SIFT A on the same frames at the same
      splits (detections and poses bit-equal, K7, K4, P1 once per call, P3
@@ -141,7 +146,8 @@ Phases (any failure exits non-zero before the final line):
      simulator runner with --feature SIFT on phase 6's room at --chunk 16
      and --chunk 8: per-pair R and `valid` equal, K7, K4, P1-P4 per chunk.
 Every path's launch gate counts P1 once and P2 `P2_PER_CALL` times per
-estimator call (`P2_PER_CALL_LO` under LO-RANSAC), and a SIFT path P3 and
+estimator call (`P2_PER_CALL_LO` under LO-RANSAC; the 8-point solver no
+P1 and `P2_PER_CALL_8PT`), and a SIFT path P3 and
 P4 once per octave of its frames (`sift_launches`; rpe_tpu_torch/ops/
 kernels.py).
 The line before the last is the kernel JSON; the last line is
@@ -208,11 +214,27 @@ P3_OPS_PER_SAMPLE, P4_OPS_PER_SAMPLE, P4_OPS_PER_SLOT = 25, 70, 512
 # measured them on the same work (PERF.md, Findings): the flushed, queued
 # and device ms per chunk, NVIDIA H100 80GB HBM3 at 700 W
 BEFORE_REDESIGN = {
+    "five_point_coeffs": "a warp per hypothesis, 0.0512 ms flushed, 0.0399 "
+                         "queued, 0.0369 device",
+    "sift_orientation_hist": "a warp per slot, each lane walking all 576 "
+                             "samples for its bins, 0.6754 ms flushed, "
+                             "0.6563 queued, 0.6468 device",
     "fixed_order_bmm": "79 launches of a thread per output, 1.3608 ms "
                        "flushed, 1.6474 queued, 0.5617 device (PR 14)",
     "sift_descriptor": "a warp per slot, 2.5970 ms flushed, 2.3913 queued, "
                        "2.3766 device (PR 15)",
 }
+
+
+def _geometry_launches(kernels, ransac, calls):
+    """P1's and P2's launches in `calls` estimator calls at RansacConfig
+    `ransac` (ops/kernels.py counts): P2 as often as its solver and
+    LO-RANSAC make it, P1 only for the 5-point solver."""
+    if ransac.solver == "8pt":
+        return kernels.geometry_launches(calls, kernels.P2_PER_CALL_8PT,
+                                         five_point=False)
+    return kernels.geometry_launches(calls, kernels.P2_PER_CALL_LO
+                                     if ransac.lo else kernels.P2_PER_CALL)
 
 
 def fail(msg: str) -> None:
@@ -238,7 +260,7 @@ def main() -> None:
     from torch_judges import p1_judge
 
     from rpe_tpu_torch.config import EstimatorConfig, MatcherConfig, \
-        RansacConfig
+        RansacConfig, profile_config
     from rpe_tpu_torch.geometry import five_point as fp
     from rpe_tpu_torch.ops import extract as textract
     from rpe_tpu_torch.ops import kernels
@@ -1042,6 +1064,7 @@ def main() -> None:
     # BRIEF pattern (K2 or K12 in its wide, rounded mode), rounded samples
     # alone, and LO-RANSAC
     cfg_lo = EstimatorConfig(ransac=RansacConfig(lo=True))
+    cfg_8pt = EstimatorConfig(ransac=RansacConfig(solver="8pt"))
     paths += [
         ("ORB RPE_NO_ATLAS=1", cfg, {"fast_harris": o.nlevels,
                                      "match_hamming": 1,
@@ -1057,14 +1080,18 @@ def main() -> None:
         ("ORB RPE_BRIEF_QUANT=1", cfg, orb_k, {"RPE_BRIEF_QUANT": "1"},
          False),
         ("ORB RansacConfig(lo=True)", cfg_lo, orb_k, {}, False),
+        # the 8-point solver (the KITTI runner's --solver 8pt): no K4, no
+        # P1; the ORB profiles orb2000 and orb1000 (--profile)
+        ("ORB RansacConfig(solver='8pt')", cfg_8pt, orb + ("match_hamming",),
+         {}, False),
+        ("ORB profile orb2000", profile_config("orb2000"), orb_k, {}, False),
+        ("ORB profile orb1000", profile_config("orb1000"), orb_k, {}, False),
     ]
     summary = {}
     for label, pcfg, expect, gates, same_bits in paths:
         if not isinstance(expect, dict):
             expect = {k: 1 for k in expect}
-        expect = expect | kernels.geometry_launches(1, (
-            kernels.P2_PER_CALL_LO if pcfg.ransac.lo
-            else kernels.P2_PER_CALL))
+        expect = expect | _geometry_launches(kernels, pcfg.ransac, 1)
         with _gates(gates):
             estimate_sequence_batched(frames, K, keys_np, pcfg, device=dev)
             torch.cuda.synchronize()
@@ -1173,7 +1200,8 @@ def main() -> None:
 def _batch_phase(torch, np, card, check, tmp, phase5, room):
     """Phase 8 (module docstring): a pair's pose does not depend on the
     batch it is estimated in. Returns the numbers it printed."""
-    from rpe_tpu_torch.config import EstimatorConfig, MatcherConfig
+    from rpe_tpu_torch.config import EstimatorConfig, MatcherConfig, \
+        RansacConfig, profile_config
     from rpe_tpu_torch.ops import kernels
     from rpe_tpu_torch.pipeline.estimator import detect_features, \
         estimate_sequence_batched
@@ -1187,39 +1215,53 @@ def _batch_phase(torch, np, card, check, tmp, phase5, room):
                                  rot_deg=SEQ_ROT_DEG)
     imgs = torch.from_numpy(frames).cuda()
     keys = np.stack([np.array([0, i], np.uint32) for i in range(n)])
-    cfg = EstimatorConfig()
     fields = ("R", "t", "valid", "num_inliers", "num_matches")
-    runs, res = {}, {}
-    for size in (n, 16, 8, 1):
-        calls = -(-n // size)
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        outs = [estimate_sequence_batched(imgs[a:a + size + 1], K,
-                                          keys[a:a + size], cfg)
-                for a in range(0, n, size)]
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        ran = {k: v for k, v in kernels.LAUNCHES.items() if v}
-        runs[size] = {k: torch.cat([o[k] for o in outs]) for k in fields}
-        want = {k: calls for k in k1_k4} | kernels.geometry_launches(calls)
-        check(f"[batch] {calls} x {size} pairs launches", ran == want,
-              f"{ran} (want {want})")
-        say(f"[batch] {calls} x {size} pairs: {n / dt:.3f} pairs/s ({card})")
-        res[f"pairs_per_s {calls}x{size}"] = n / dt
-    whole = runs[n]
-    check("[batch] every pair valid in one call",
-          bool(whole["valid"].all()),
-          f"{int(whole['valid'].sum())} of {n} valid")
-    for size in (16, 8, 1):
-        same = {k: bool(torch.equal(runs[size][k], whole[k]))
-                for k in fields}
-        dR = float((runs[size]["R"] - whole["R"]).abs().max())
-        dt = float((runs[size]["t"] - whole["t"]).abs().max())
-        check(f"[batch] {n // size} x {size} pairs against 1 x {n}",
-              all(same.values()),
-              f"bit-equal {same}; max |dR| {dR!r}, |dt| {dt!r}")
-        res[f"max_abs_dR {size}"] = dR
+    res = {}
+    # the ORB path, the 8-point solver (K1-K3, no K4) and the orb2000
+    # profile at every split
+    for label, pcfg, ks in (
+            ("ORB", EstimatorConfig(), k1_k4),
+            ("ORB 8pt", EstimatorConfig(ransac=RansacConfig(solver="8pt")),
+             k1_k4[:3]),
+            ("ORB orb2000", profile_config("orb2000"), k1_k4)):
+        tag = "[batch]" if label == "ORB" else f"[batch {label}]"
+        pre = "" if label == "ORB" else f"{label} "
+        runs = {}
+        for size in (n, 16, 8, 1):
+            calls = -(-n // size)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            outs = [estimate_sequence_batched(imgs[a:a + size + 1], K,
+                                              keys[a:a + size], pcfg)
+                    for a in range(0, n, size)]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            ran = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            runs[size] = {k: torch.cat([o[k] for o in outs]) for k in fields}
+            want = ({k: calls for k in ks}
+                    | _geometry_launches(kernels, pcfg.ransac, calls))
+            check(f"{tag} {calls} x {size} pairs launches", ran == want,
+                  f"{ran} (want {want})")
+            say(f"{tag} {calls} x {size} pairs: {n / dt:.3f} pairs/s "
+                f"({card})")
+            res[f"{pre}pairs_per_s {calls}x{size}"] = n / dt
+        whole = runs[n]
+        n_valid = int(whole["valid"].sum())
+        if label == "ORB 8pt":
+            say(f"{tag} one call of {n}: {n_valid} of {n} valid")
+        else:
+            check(f"{tag} every pair valid in one call", n_valid == n,
+                  f"{n_valid} of {n} valid")
+        for size in (16, 8, 1):
+            same = {k: bool(torch.equal(runs[size][k], whole[k]))
+                    for k in fields}
+            dR = float((runs[size]["R"] - whole["R"]).abs().max())
+            dt = float((runs[size]["t"] - whole["t"]).abs().max())
+            check(f"{tag} {n // size} x {size} pairs against 1 x {n}",
+                  all(same.values()),
+                  f"bit-equal {same}; max |dR| {dR!r}, |dt| {dt!r}")
+            res[f"{pre}max_abs_dR {size}"] = dR
 
     # the KITTI runner at --chunk 32 against phase 5's --chunk 16
     base = phase5["base"]
@@ -1392,7 +1434,7 @@ def _sift_rows(torch, ori_calls, desc_calls, check, t, card):
     of one chunk's detection, octave by octave."""
     import math
 
-    from torch_judges import p3_judge, p3_references, p4_judge
+    from torch_judges import p3_judge, p3_references, p3_serial, p4_judge
 
     from rpe_tpu_torch.ops import sift
 
@@ -1407,8 +1449,10 @@ def _sift_rows(torch, ori_calls, desc_calls, check, t, card):
         gxp, gyp, ucx, ucy, scl = a
         f, q, py, px = gxp.shape
         h = sift.orientation_hist(*a)
-        hk, _, _, bins_k = sift.orientation_hist(*a, detail=True)
+        hk, vx_k, vy_k, bins_k = sift.orientation_hist(*a, detail=True)
         ok, info = p3_judge(hk, bins_k, p3_references(*a))
+        serial = int((hk.view(torch.int32) != p3_serial(
+            vx_k, vy_k, bins_k).view(torch.int32)).sum())
         fh, qh = f // 2, q // 2
         split_f = torch.equal(torch.cat([sift.orientation_hist(
             *(x[:fh] for x in a)), sift.orientation_hist(
@@ -1420,8 +1464,11 @@ def _sift_rows(torch, ori_calls, desc_calls, check, t, card):
                                    .abs().max()))
         check(f"P3 sift_orientation_hist (octave {o}, {f} x {q} slots of "
               f"{py}x{px} patches)",
-              ok and torch.equal(h, hk) and split_f and split_q,
-              f"{info}; relative to the bins' terms' magnitudes: kernel "
+              ok and torch.equal(h, hk) and split_f and split_q
+              and serial == 0,
+              f"{info}; bins whose bits differ from p3_serial of the "
+              f"kernel's own samples and bins: {serial} (want 0); relative "
+              f"to the bins' terms' magnitudes: kernel "
               f"against float64 {info['rel_kernel_f64']:.3e} (<= 1e-6), "
               f"against plain {info['rel_kernel_plain']:.3e}; slots where a "
               f"sample's bin differs: {info['flipped_plain']} against the "
@@ -2838,9 +2885,16 @@ def _p2_contract(torch, launches, reads):
 
 
 def _exact_minimal_coeffs(np, torch, fp, b, dev):
-    """K4 input from b noise-free minimal problems (random rotation of 2-30
-    deg, unit translation, 5 points at depth 3-10), the construction of the
-    reference's kernel test."""
+    """K4 input from `_exact_minimal_problems`: their constraint
+    coefficients (b, 10, 20)."""
+    _, c = fp.constraint_coeffs(*_exact_minimal_problems(np, torch, b, dev))
+    return c.contiguous()
+
+
+def _exact_minimal_problems(np, torch, b, dev):
+    """b noise-free minimal problems (random rotation of 2-30 deg, unit
+    translation, 5 points at depth 3-10), the construction of the
+    reference's kernel test: pts1, pts2 (b, 5, 2) float32."""
     from rpe_tpu_torch.utils.synthetic import rotation_from_axis_angle
 
     g = np.random.default_rng(5)
@@ -2855,10 +2909,8 @@ def _exact_minimal_coeffs(np, torch, fp, b, dev):
         X2 = X @ R.T + t
         p1s.append((X / X[:, 2:3])[:, :2])
         p2s.append((X2 / X2[:, 2:3])[:, :2])
-    _, c = fp.constraint_coeffs(
-        torch.tensor(np.stack(p1s), dtype=torch.float32, device=dev),
-        torch.tensor(np.stack(p2s), dtype=torch.float32, device=dev))
-    return c.contiguous()
+    return (torch.tensor(np.stack(p1s), dtype=torch.float32, device=dev),
+            torch.tensor(np.stack(p2s), dtype=torch.float32, device=dev))
 
 
 if __name__ == "__main__":

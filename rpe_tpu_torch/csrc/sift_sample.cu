@@ -13,10 +13,22 @@
 // Here one warp owns one keypoint slot and every sum runs in an order that
 // depends only on the sample index (the 24 x 24 grid, row-major ascending):
 //
-//   P3 `ori_hist_kernel`: lanes compute the 576 samples of both gradient
-//     planes (bilinear: rows, then columns), their magnitude, angle, bin
-//     and Gaussian-windowed term into shared memory; lane b then sums the
-//     terms of bin b (and b + 32) over the samples in ascending order.
+//   P3 `ori_hist_kernel`: the lanes compute the 576 samples of both
+//     gradient planes (bilinear: rows, then columns), their magnitude,
+//     angle, bin and Gaussian-windowed term in 18 rounds of 32 samples,
+//     lane l taking sample 32 r + l and holding its term in a register.
+//     Each sample takes its place in its bin's list as it is made: the
+//     bin's entries of the rounds before (a count in shared memory) plus
+//     the lanes before it in this round with the same bin
+//     (`__match_any_sync`). After the rounds an exclusive scan of the 36
+//     counts gives each bin a contiguous run of shared memory, every term
+//     goes to its place, and the lane that owns a bin sums its run in
+//     ascending order. A term that is exactly +0.0 takes no place (every
+//     term is >= 0 or NaN and the sum starts at +0.0, so adding it changes
+//     no bit): the 168 samples outside the window's circle and the flat
+//     ones. Lane b owns bin b; bins 32-35 go to the four lanes with the
+//     fewest entries, so the walk takes as long as the largest bin, not
+//     576 samples for every bin.
 //   P4 `desc_kernel`: a block of four warps owns one slot. Its 128
 //     threads compute the samples in rounds of 128: each sample's rotated
 //     bin coordinates and trilinear weights (two row, two column and two
@@ -53,10 +65,11 @@
 // gradient patches (at most 48 x 48 of the 80 x 80, read through L1),
 // the per-slot scalars and the outputs; the float64 sums and atan2f make
 // the work a few thousand operations a slot, well under the byte time at
-// the main path's 27,216 slots of octave 0. P4 is held back by issue
-// slots instead: a sample reaches 8 of the 128 outputs, so the lists spare
-// each output a walk over all 576 samples; it visits its cell's ~46 and
-// adds ~12 terms.
+// the main path's 27,216 slots of octave 0. Both kernels are held back by
+// issue slots instead, so both visit each sample once per output it
+// reaches: in P3 a sample reaches one of the 36 bins, and its lists spare
+// each bin a walk over all 576 samples; in P4 a sample reaches 8 of the
+// 128 outputs, and an output visits its cell's ~46 and adds ~12 terms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -171,21 +184,33 @@ ori_hist_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
                 const float* __restrict__ scl, const float* __restrict__ tab,
                 float* __restrict__ hist, float* __restrict__ samples,
                 uint8_t* __restrict__ bins, long long n, int py, int px) {
+    constexpr int ROUNDS = NS / 32;
+    constexpr unsigned NONE = 0xffffffffu;      // a term that takes no place
     __shared__ Taps s_taps[WARPS];
-    __shared__ float s_term[WARPS][NS];
-    __shared__ unsigned char s_bin[WARPS][NS];
+    __shared__ float s_run[WARPS][NS];          // the terms, bin by bin
+    __shared__ int s_at[WARPS][ORI_BINS];       // a bin's count, then offset
+    const unsigned FULL = 0xffffffffu;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const unsigned below = (1u << lane) - 1u;
     const long long slot = (long long)blockIdx.x * WARPS + warp;
     if (slot >= n) return;              // the whole warp: no block barrier
     Taps& t = s_taps[warp];
+    int* at = s_at[warp];
+    float* run = s_run[warp];
     const float radius = scl[slot] * 4.5f;          // 3.0 * 1.5 * scl
+    at[lane] = 0;
+    if (lane < ORI_BINS - 32) at[32 + lane] = 0;
     grid_taps(t, lane, tab + TAB_ORI_LIN, ucx[slot], ucy[slot], radius, py,
-              px);
+              px);                                  // (ends in __syncwarp)
     const long long plane = (long long)py * px;
     const float* pgx = gx + slot * plane;
     const float* pgy = gy + slot * plane;
     const float* win = tab + TAB_ORI_W;
-    for (int s = lane; s < NS; s += 32) {
+    float term[ROUNDS];
+    unsigned key[ROUNDS];               // bin << 16 | place in its bin
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+        const int s = 32 * r + lane;
         const int i = s / G, j = s - (s / G) * G;
         const float vx = sample(t, pgx, px, i, j);
         const float vy = sample(t, pgy, px, i, j);
@@ -193,24 +218,67 @@ ori_hist_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
         const float ang = atan2f(vy, vx);
         int b = (int)floorf((ang / TWO_PI + 0.5f) * (float)ORI_BINS);
         b = min(max(b, 0), ORI_BINS - 1);
-        s_term[warp][s] = mag * win[s];
-        s_bin[warp][s] = (unsigned char)b;
+        const float w = mag * win[s];
         if (DETAIL) {
             samples[slot * 2 * NS + s] = vx;
             samples[slot * 2 * NS + NS + s] = vy;
             bins[slot * NS + s] = (uint8_t)b;
         }
+        const bool keep = __float_as_uint(w) != 0u;
+        const unsigned peers = __match_any_sync(FULL, keep ? b : ORI_BINS);
+        const int place = at[b] + __popc(peers & below);
+        __syncwarp();
+        // the last lane of the bin's group counts the round's entries
+        if (keep && (peers >> lane) == 1u) at[b] = place + 1;
+        __syncwarp();
+        term[r] = w;
+        key[r] = keep ? ((unsigned)b << 16 | (unsigned)place) : NONE;
     }
+    // exclusive scan of the counts: bins 0-31 in the low half-word of a
+    // lane's value, bins 32-35 (lanes 0-3) in the high one
+    const int c0 = at[lane];
+    const int c1 = lane < ORI_BINS - 32 ? at[32 + lane] : 0;
+    int sum = c0 | (c1 << 16);
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(FULL, sum, d);
+        if (lane >= d) sum += u;
+    }
+    const int total0 = __shfl_sync(FULL, sum, 31) & 0xffff;
+    const int off0 = (sum & 0xffff) - c0;
+    const int off1 = total0 + (sum >> 16) - c1;
     __syncwarp();
-    const int b0 = lane, b1 = lane + 32;
-    double a0 = 0.0, a1 = 0.0;
-    for (int s = 0; s < NS; ++s) {
-        const int b = s_bin[warp][s];
-        if (b == b0) a0 += (double)s_term[warp][s];
-        else if (b == b1) a1 += (double)s_term[warp][s];
+    at[lane] = off0;
+    if (lane < ORI_BINS - 32) at[32 + lane] = off1;
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r)
+        if (key[r] != NONE) run[at[key[r] >> 16] + (key[r] & 0xffffu)] = term[r];
+    // bin 32 + e goes to the lane with the e-th fewest entries (ties to
+    // the lower lane)
+    unsigned mine = (unsigned)c0 << 5 | (unsigned)lane;
+    int extra = -1;
+#pragma unroll
+    for (int e = 0; e < ORI_BINS - 32; ++e) {
+        const unsigned least = __reduce_min_sync(FULL, mine);
+        if ((least & 31u) == (unsigned)lane) {
+            extra = 32 + e;
+            mine = 0xffffffffu;
+        }
     }
-    hist[slot * ORI_BINS + b0] = (float)a0;
-    if (b1 < ORI_BINS) hist[slot * ORI_BINS + b1] = (float)a1;
+    const int e1 = extra < 0 ? 0 : extra - 32;
+    const int x_off = __shfl_sync(FULL, off1, e1);
+    const int x_cnt = __shfl_sync(FULL, c1, e1);
+    __syncwarp();
+    // each bin's run in ascending sample order, in float64, rounded once
+    double a0 = 0.0;
+    for (int k = 0; k < c0; ++k) a0 += (double)run[off0 + k];
+    hist[slot * ORI_BINS + lane] = (float)a0;
+    if (extra >= 0) {
+        double a1 = 0.0;
+        for (int k = 0; k < x_cnt; ++k) a1 += (double)run[x_off + k];
+        hist[slot * ORI_BINS + extra] = (float)a1;
+    }
 }
 
 // Sum of the float32 squares of 128 shared values, in ascending order.

@@ -13,7 +13,9 @@ No `--use_fast_math`: BRIEF rounding and the 5-point sign tests rely on IEEE
 turn off FMA contraction (`-fmad=false`) so their arithmetic is the same
 sequence of roundings as their plain PyTorch versions, and so does SIFT's
 (P3, P4), whose only difference from its plain version is then the order
-and precision of its sums.
+and precision of its sums. P1 (five_point_coeffs.cu) is built the same way
+and writes each of its fused multiply-adds as `__fma_rn`, so the source
+alone fixes how every output rounds.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made; the wrappers
 increment it right after a launch succeeds and nowhere else. A source may
@@ -49,7 +51,7 @@ SOURCES = {
     "five_point_roots": ("five_point_roots.cu", []),
     "match_l2": ("match_l2.cu", []),
     "extract_patches": ("extract_patches.cu", ["-fmad=false"]),
-    "five_point_coeffs": ("five_point_coeffs.cu", []),
+    "five_point_coeffs": ("five_point_coeffs.cu", ["-fmad=false"]),
     "fixed_order": ("fixed_order.cu", []),
     "sift_sample": ("sift_sample.cu", ["-fmad=false"]),
 }
@@ -77,20 +79,26 @@ KERNELS = {
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# P1 launches once per estimator call, P2 once at each call of the
-# geometry's fixed-order helpers (geometry/_products.py `matmul`, `row_sum`,
-# and `matmuls`, which takes up to four products in one launch), a number
-# fixed by the path (tests/test_torch_batch_invariance.py counts them on
-# the CPU)
+# P1 launches once per estimator call of the 5-point solver, P2 once at
+# each call of the geometry's fixed-order helpers (geometry/_products.py
+# `matmul`, `row_sum`, and `matmuls`, which takes up to four products in
+# one launch), a number fixed by the path (counted on the CPU by
+# tests/test_torch_batch_invariance.py)
 P2_PER_CALL = 43            # default RANSAC: 5-point, DEGENSAC, 2 refits
 P2_PER_CALL_LO = 63         # RansacConfig(lo=True)
+P2_PER_CALL_8PT = 44        # RansacConfig(solver="8pt"): no P1 (and no K4)
 P2_PAIRS_2D = 82            # estimate_pairs_2d on a (1, 2) mesh: RANSAC on
                             # each hyp shard, recover_pose once
 
 
-def geometry_launches(calls: int, p2: int = P2_PER_CALL) -> dict[str, int]:
-    """P1's and P2's launches in `calls` estimator calls."""
-    return {"five_point_coeffs": calls, "fixed_order_bmm": calls * p2}
+def geometry_launches(calls: int, p2: int = P2_PER_CALL,
+                      five_point: bool = True) -> dict[str, int]:
+    """P1's and P2's launches in `calls` estimator calls (P1 only where
+    the 5-point solver draws the hypotheses)."""
+    out = {"fixed_order_bmm": calls * p2}
+    if five_point:
+        out["five_point_coeffs"] = calls
+    return out
 
 
 def sift_launches(h: int, w: int, cfg, calls: int = 1,

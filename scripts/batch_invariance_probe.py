@@ -3,7 +3,8 @@
 
 A mesh of two shards, a `--chunk` of another size and the fallback's
 re-runs estimate the same pairs in batches of other sizes. This script runs
-the ORB path (`EstimatorConfig()`, or SIFT A with `--feature sift`) on one
+the ORB path (`EstimatorConfig()`, or SIFT A with `--feature sift`; the
+8-point solver with `--solver 8pt`) on one
 1241x376 sequence of 33 frames (32 pairs) in one call and in chunks of 16,
 8 and 1 pairs, and compares every stage on identical inputs, so that a
 difference is traced to the first stage whose output depends on the batch:
@@ -25,6 +26,9 @@ difference is traced to the first stage whose output depends on the batch:
   desc hist      the 128 sums before normalising (P4)
   desc           after normalise, clip and renormalise (P4)
   match          matches of each pair, on identical detections
+  (with `--solver 8pt`, in place of null4 ... project: its 8-point
+  samples' normal matrices `8pt AtA`, their `smallest_eigvec_sym`
+  `8pt eig`, and `hypotheses`, the projected E of `ransac.hypotheses`)
   null4          the Householder null space of the epipolar rows
   coeffs         `constraint_coeffs`: null4 and the constraint coefficients
   roots          K4's roots on identical coefficients
@@ -54,6 +58,7 @@ difference is traced to the first stage whose output depends on the batch:
     python3 scripts/batch_invariance_probe.py              # on the card
     python3 scripts/batch_invariance_probe.py --device cpu
     python3 scripts/batch_invariance_probe.py --feature sift
+    python3 scripts/batch_invariance_probe.py --solver 8pt
     python3 scripts/batch_invariance_probe.py --feature sift --device cpu \
         --pairs 4 --size 120 400
 
@@ -65,6 +70,7 @@ the same place on both sides counts as equal).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -74,7 +80,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from rpe_tpu_torch import rng  # noqa: E402
-from rpe_tpu_torch.config import EstimatorConfig, MatcherConfig  # noqa: E402
+from rpe_tpu_torch.config import EstimatorConfig, MatcherConfig, \
+    RansacConfig  # noqa: E402
 from rpe_tpu_torch.geometry import five_point as fp  # noqa: E402
 from rpe_tpu_torch.geometry import homography as hom  # noqa: E402
 from rpe_tpu_torch.geometry import ransac as rs  # noqa: E402
@@ -245,25 +252,36 @@ def run_probe(imgs, K, keys, cfg: EstimatorConfig, sizes=SIZES,
                ).expand(n).contiguous()
         thr2 = (thr * thr)[:, None, None]
         hyps = cfg.ransac.num_hypotheses
-        idx = rs.sample_minimal_indices(keys, mv, hyps, sample_size=5)
-        s1, s2 = rs.gather_points(n1, idx), rs.gather_points(n2, idx)
+        if cfg.ransac.solver == "8pt":
+            idx = rs.sample_minimal_indices(keys, mv, hyps)
+            s1, s2 = rs.gather_points(n1, idx), rs.gather_points(n2, idx)
+            AtA8 = stage("8pt AtA", lambda s: normal_matrix(
+                _build_epipolar_rows(s1[s], s2[s])))
+            stage("8pt eig", lambda s: smallest_eigvec_sym(AtA8[s]))
+            E_h, hyp_ok = stage("hypotheses", lambda s: rs.hypotheses(
+                keys[s], n1[s], n2[s], mv[s], hyps, "8pt"))
+        else:
+            idx = rs.sample_minimal_indices(keys, mv, hyps, sample_size=5)
+            s1, s2 = rs.gather_points(n1, idx), rs.gather_points(n2, idx)
 
-        stage("null4", lambda s: fp._householder_null4(
-            _build_epipolar_rows(s1[s], s2[s])))
-        null4, coeffs = stage("coeffs",
-                              lambda s: fp.constraint_coeffs(s1[s], s2[s]))
+            stage("null4", lambda s: fp._householder_null4(
+                _build_epipolar_rows(s1[s], s2[s])))
+            null4, coeffs = stage(
+                "coeffs", lambda s: fp.constraint_coeffs(s1[s], s2[s]))
 
-        def roots(s):
-            c = coeffs[s]
-            out = fp.solve_roots_polished(c.reshape(-1, 10, 20).contiguous())
-            return tuple(o.reshape(*c.shape[:2], fp.MAX_ROOTS) for o in out)
+            def roots(s):
+                c = coeffs[s]
+                out = fp.solve_roots_polished(
+                    c.reshape(-1, 10, 20).contiguous())
+                return tuple(o.reshape(*c.shape[:2], fp.MAX_ROOTS)
+                             for o in out)
 
-        rt = stage("roots", roots)
-        E_r, has = stage("candidates", lambda s: fp._assemble_candidates(
-            null4[s], *(o[s] for o in rt)))
-        E_r = E_r.reshape(n, -1, 3, 3)
-        hyp_ok = has.reshape(n, -1)
-        E_h = stage("project", lambda s: project_to_essential(E_r[s]))[0]
+            rt = stage("roots", roots)
+            E_r, has = stage("candidates", lambda s: fp._assemble_candidates(
+                null4[s], *(o[s] for o in rt)))
+            E_r = E_r.reshape(n, -1, 3, 3)
+            hyp_ok = has.reshape(n, -1)
+            E_h = stage("project", lambda s: project_to_essential(E_r[s]))[0]
 
         inl_h, counts, trunc = stage("score", lambda s: rs.score_hypotheses(
             E_h[s], hyp_ok[s], n1[s], n2[s], mv[s], thr2[s]))
@@ -346,6 +364,8 @@ def main() -> None:
     ap.add_argument("--feature", choices=("orb", "sift"), default="orb")
     ap.add_argument("--size", type=int, nargs=2, default=(376, 1241),
                     metavar=("H", "W"), help="frame size (default KITTI's)")
+    ap.add_argument("--solver", choices=("5pt", "8pt"), default="5pt",
+                    help="RansacConfig(solver=...) (default 5pt)")
     args = ap.parse_args()
     from rpe_tpu_torch.utils.synthetic import make_sequence
 
@@ -358,8 +378,10 @@ def main() -> None:
         print(f"device: {smi.stdout.strip() or torch.cuda.get_device_name()}")
     else:
         print("device: cpu")
-    cfg = EstimatorConfig() if args.feature == "orb" else EstimatorConfig(
-        feature_method="SIFT", matcher=MatcherConfig(norm_type="l2"))
+    cfg = EstimatorConfig(ransac=RansacConfig(solver=args.solver))
+    if args.feature == "sift":
+        cfg = dataclasses.replace(cfg, feature_method="SIFT",
+                                  matcher=MatcherConfig(norm_type="l2"))
     n = args.pairs
     # chip_smoke.py phase 5's motion (SEQ_STEP, SEQ_ROT_DEG), seed 0
     frames, K, _ = make_sequence(n + 1, *args.size, seed=0,
@@ -367,8 +389,8 @@ def main() -> None:
     imgs = torch.from_numpy(frames).to(dev)
     Kt = torch.as_tensor(K, dtype=torch.float32, device=dev)
     keys = torch.stack([rng.PRNGKey(i) for i in range(n)]).to(dev)
-    print(f"{args.feature.upper()}, {n} pairs: largest difference against "
-          f"one call of {n} pairs")
+    print(f"{args.feature.upper()} ({args.solver}), {n} pairs: largest "
+          f"difference against one call of {n} pairs")
     res = run_probe(imgs, Kt, keys, cfg, tuple(c for c in SIZES if c < n))
     moved = [k for k, v in res.items() if any(x != 0.0 for x in v.values())]
     print(f"stages that move: {moved or 'none'}")

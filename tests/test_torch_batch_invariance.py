@@ -17,7 +17,7 @@ fixed by their code. These CPU tests hold:
   estimator call as ops/kernels.py states; P2's serial float64 reference
   (tests/torch_judges.py `p2_serial`) is the exact product on integers;
 - scripts/batch_invariance_probe.py's stage comparisons report 0.0, its
-  SIFT detection sub-stages too;
+  SIFT detection sub-stages and its 8-point solver's stages too;
 - the SIFT A path (120x400 frames, 512 slots): detections and R, t,
   `valid`, `num_inliers` bit-equal for 4 pairs in one call, 2 + 2 and
   1 x 4; P3's and P4's wrappers on CPU tensors are
@@ -290,12 +290,27 @@ def test_probe_stages_report_zero_on_cpu():
     assert not moved, moved
 
 
-@pytest.mark.parametrize("path", ["orb", "lo", "pairs_2d"])
+def test_probe_8pt_stages_report_zero_on_cpu():
+    """The probe with the 8-point solver (`--solver 8pt`): its hypothesis
+    stages in place of the 5-point ones, every stage 0."""
+    probe = _probe()
+    imgs, keys = _scene()
+    cfg = EstimatorConfig(orb=TINY.orb, matcher=TINY.matcher,
+                          ransac=RansacConfig(num_hypotheses=128,
+                                              solver="8pt"))
+    res = probe.run_probe(imgs, torch.from_numpy(K), keys, cfg, sizes=(4, 1),
+                          say=lambda _: None)
+    assert "hypotheses" in res and "8pt eig" in res and "coeffs" not in res
+    moved = {k: v for k, v in res.items() if any(x != 0.0 for x in v.values())}
+    assert not moved, moved
+
+
+@pytest.mark.parametrize("path", ["orb", "lo", "8pt", "pairs_2d"])
 def test_p2_launches_per_call(monkeypatch, path):
     """ops/kernels.py's P2 counts per estimator call (the launch gates of
     chip_smoke.py and tests/test_torch_gpu.py): the fixed-order helper
-    calls of the ORB path, of LO-RANSAC and of `estimate_pairs_2d` on a
-    (1, 2) mesh, counted on the CPU."""
+    calls of the ORB path, of LO-RANSAC, of the 8-point solver and of
+    `estimate_pairs_2d` on a (1, 2) mesh, counted on the CPU."""
     from rpe_tpu_torch.ops import kernels
     from rpe_tpu_torch.parallel.mesh import Mesh
     from rpe_tpu_torch.parallel.sharded_estimator import estimate_pairs_2d
@@ -320,9 +335,13 @@ def test_p2_launches_per_call(monkeypatch, path):
         return
     lo = path == "lo"
     cfg = EstimatorConfig(orb=TINY.orb, matcher=TINY.matcher,
-                          ransac=RansacConfig(num_hypotheses=128, lo=lo))
+                          ransac=RansacConfig(num_hypotheses=128, lo=lo,
+                                              solver=path if path == "8pt"
+                                              else "5pt"))
     estimate_sequence_batched(imgs, K, keys, cfg, device="cpu")
-    assert calls[0] == (kernels.P2_PER_CALL_LO if lo else kernels.P2_PER_CALL)
+    assert calls[0] == {"orb": kernels.P2_PER_CALL,
+                        "lo": kernels.P2_PER_CALL_LO,
+                        "8pt": kernels.P2_PER_CALL_8PT}[path]
 
 
 # tests/test_torch_sift.py's size: 120x400 frames, 512 slots; its config A

@@ -4,7 +4,7 @@
 shared by chip_smoke.py and tests/test_torch_gpu.py:
 
     from torch_judges import p1_judge, p2_judge, p2_serial, p3_judge, \
-        p4_judge
+        p3_serial, p4_judge
 
 Only torch is needed, so chip_smoke.py can import this file on the card
 machine.
@@ -83,6 +83,28 @@ def p2_serial(a, b=None, a2=None):
     for q in range(x.shape[-1]):
         acc = acc + x[..., :, q:q + 1] * y[..., q:q + 1, :]
     return acc.float()
+
+
+def p3_serial(vx, vy, bins):
+    """P3's serial reference on the kernel's own detail outputs: samples
+    vx, vy (..., 24, 24) and bins (..., 576). Each term is formed in
+    float32 as the kernel forms it, sqrt(vx * vx + vy * vy) times the
+    window, one rounding a step (no fused multiply-add); each bin is the
+    float64 sum of its terms in ascending sample order, rounded once to
+    float32. Returns (..., 36): bit for bit what P3 gives at any batch."""
+    from rpe_tpu_torch.ops import sift
+
+    lead = bins.shape[:-1]
+    n = bins.numel() // bins.shape[-1]
+    vx, vy = vx.reshape(n, -1), vy.reshape(n, -1)
+    ori_w = sift._grid_weights()[0].reshape(-1).to(vx.device)
+    xx, yy = vx * vx, vy * vy
+    terms = torch.sqrt(xx + yy) * ori_w
+    b = bins.reshape(n, -1).long()
+    acc = torch.zeros(n, 36, dtype=torch.float64, device=vx.device)
+    for s in range(b.shape[1]):
+        acc.scatter_add_(1, b[:, s:s + 1], terms[:, s:s + 1].double())
+    return acc.float().reshape(*lead, 36)
 
 
 def p3_references(gxp, gyp, ucx, ucy, scl):
