@@ -1862,8 +1862,9 @@ def _runner_phase(torch, np, card, check, tmp, keep):
     def on_card(e):
         return str(getattr(e, "device_type", "")).endswith("CUDA")
 
-    # device work only: the stage ranges (StageTimer's record_function)
-    # also show on the device's timeline, spanning the work they launch
+    # device work only: kernels, copies and memsets, not the stage ranges
+    # (StageTimer's spans, host events; their names are left out in case a
+    # profiler shows them on the device's timeline)
     stages = ("decode", "stage", "dispatch", "flush")
     dev_spans = [(e.time_range.start, e.time_range.end) for e in evs
                  if on_card(e) and e.name not in stages]

@@ -1,0 +1,11 @@
+"""match_idle_ms_per_pair: the idle gaps of the traced window's device timeline
+(the union `device_idle_pct` reads) that an event the stage launched ended,
+over the traced pairs: the time the card waited on the stage's host path.
+The stage is the program's span rpe.match, `match_features` and the gathers
+of matched points (posebench/stages.py). None without the program's spans."""
+
+import stages
+
+
+def read(trace):
+    return stages.per_pair(trace, "match", "idle_s", 1e3)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops import kernels
+from ..utils.observability import htod
 
 _EPS = 1e-20
 
@@ -400,7 +401,7 @@ def _launchers(name, coeffs):
 def _device_tan_grid(device):
     """The tan grid on the card, copied there once per device (a tensor's
     device, so one with its index)."""
-    return torch.from_numpy(_tan_grid()).to(device)
+    return htod(_tan_grid(), device)
 
 
 @functools.lru_cache(maxsize=None)

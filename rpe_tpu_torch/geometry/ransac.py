@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .. import rng
+from ..utils.observability import htod
 from .epipolar import eight_point, project_to_essential, sampson_error_sq
 
 
@@ -84,7 +85,7 @@ def local_optimization(key, E_best, inlier_mask, pts1_n, pts2_n, valid_mask,
                                 thr2[:, :, None])
     ci = torch.argmin(loss_cand, dim=-1)
     E_cur, loss_cur = E_cand[ar, ci], loss_cand[ar, ci]
-    for mult in torch.from_numpy(LO_MULTIPLIERS).to(pts1_n.device):
+    for mult in htod(LO_MULTIPLIERS, pts1_n.device):
         thr_m = thr2 * mult
         d2c = sampson_error_sq(E_cur, pts1_n, pts2_n)
         d2c = torch.where(torch.isfinite(d2c), d2c, thr_m)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.observability import htod
 from ._products import matmuls
 from .epipolar import essential_frame
 
@@ -22,8 +23,8 @@ def decompose_essential(E):
     on the card the products are P2's, R1 and R2 two chains of one
     launch)."""
     U, Vt = essential_frame(E)
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    W = htod([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+             E.device, E.dtype)
     R1, R2 = matmuls((U, W, Vt), (U, W.T, Vt))
     return R1, R2, U[..., :, 2]
 

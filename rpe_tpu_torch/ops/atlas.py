@@ -14,6 +14,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.observability import htod
 from .pyramid import level_shapes
 
 GAP = 24  # dead rows between levels (> patch radius + blur radius)
@@ -87,7 +88,7 @@ def build_atlas_fused(img, nlevels: int, scale_factor: float):
     offsets, total, wp = atlas_layout(h, w, nlevels, scale_factor)
     Rv_np, Cws_np = _atlas_resize_mats(h, w, nlevels, scale_factor)
     dev, dt = img.device, img.dtype
-    v = torch.matmul(torch.from_numpy(Rv_np).to(dev), img)   # (F, sum lh, W)
+    v = torch.matmul(htod(Rv_np, dev), img)                  # (F, sum lh, W)
 
     def padw(a):
         return torch.nn.functional.pad(a, (0, wp - a.shape[-1]))
@@ -102,7 +103,7 @@ def build_atlas_fused(img, nlevels: int, scale_factor: float):
         else:
             blk = v[:, vrow:vrow + lh]
             segs.append(padw(torch.matmul(
-                blk, torch.from_numpy(Cws_np[l - 1]).to(dev))))
+                blk, htod(Cws_np[l - 1], dev))))
             vrow += lh
         row = off + lh
     segs.append(torch.zeros((f, total - row, wp), dtype=dt, device=dev))

@@ -33,6 +33,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.observability import htod
 from . import kernels
 from .fast import kernel_gate
 from .orb import N_BRIEF_BINS, PATCH, PATCH_R, _ic_angle_masks, \
@@ -94,7 +95,7 @@ def _brief_tables(dev: torch.device, kind: str | None = None):
 
 @functools.lru_cache(maxsize=None)
 def _brief_tables_on(dev: torch.device, kind: str):
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return tuple(htod(np.ascontiguousarray(a), dev)
                  for a in _brief_tables_np(kind))
 
 

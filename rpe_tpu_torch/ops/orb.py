@@ -22,6 +22,8 @@ import os
 import numpy as np
 import torch
 
+from ..utils.observability import htod
+
 PATCH_R = 15          # orientation circle radius (OpenCV HALF_PATCH_SIZE)
 PATCH = 2 * PATCH_R + 1
 PATTERN_R = 13        # max BRIEF pattern point radius (rotation-safe < 15)
@@ -121,8 +123,7 @@ def ic_moments(patches):
     """Intensity-centroid moments (m10, m01) of (K, PATCH, PATCH) patches."""
     mask_np, us_np, vs_np = _ic_angle_masks()
     dev = patches.device
-    mask, us, vs = (torch.from_numpy(a).to(dev)
-                    for a in (mask_np, us_np, vs_np))
+    mask, us, vs = (htod(a, dev) for a in (mask_np, us_np, vs_np))
     w = patches * mask
     return (w * us).sum(dim=(-2, -1)), (w * vs).sum(dim=(-2, -1))
 
@@ -164,8 +165,7 @@ def steered_sample_index(angles, transposed: bool = False,
     iy if `transposed`) of the BRIEF pattern's points rotated by each angle,
     rounded half-to-even and clipped to the patch; point j of pair k at
     column 2k + j."""
-    pat = torch.from_numpy(brief_pattern(kind=kind).astype(np.float32)).to(
-        angles.device)
+    pat = htod(brief_pattern(kind=kind).astype(np.float32), angles.device)
     ca, sa = torch.cos(angles), torch.sin(angles)
     px, py = pat[..., 0], pat[..., 1]                         # (256, 2)
     rx = px[None] * ca[:, None, None] - py[None] * sa[:, None, None]
@@ -238,8 +238,7 @@ def angle_bins(m10, m01, n_bins: int = N_BRIEF_BINS):
     """Nearest steering bin of raw IC moments (K,) -> (K,) int32: the first
     b maximising m10 cos_b + m01 sin_b (each product rounded, then the sum),
     so zero moments give bin 0."""
-    cosb, sinb = (torch.from_numpy(a).to(m10.device)
-                  for a in brief_bin_vectors(n_bins))
+    cosb, sinb = (htod(a, m10.device) for a in brief_bin_vectors(n_bins))
     dots = m10[:, None] * cosb[None] + m01[:, None] * sinb[None]   # (K, B)
     mx = dots.max(dim=1, keepdim=True).values
     idx = torch.where(dots >= mx, torch.arange(
@@ -255,7 +254,7 @@ def steered_brief_t_binned(patches_blur_t, m10, m01,
     extraction kernel, K12): the bin from the raw moments (`angle_bins`),
     the samples from its row of `brief_bin_tables`, rounded first when
     `brief_quant`."""
-    ix, iy = (torch.from_numpy(a.astype(np.int64)).to(m10.device)
+    ix, iy = (htod(a.astype(np.int64), m10.device)
               for a in brief_bin_tables(kind=kind))
     b = angle_bins(m10, m01).long()
     vals = _sample(patches_blur_t, (ix * PATCH + iy)[b],
@@ -309,7 +308,7 @@ def atlas_keypoints(imgs, nfeatures: int = 4000, nlevels: int = 12,
     shapes = tuple(level_shapes(h, w, nlevels, scale_factor))
     mask = _atlas_valid_mask(tuple(offsets), total, wp, shapes, EDGE_MARGIN)
     neg_inf = torch.full((), -torch.inf, dtype=rank.dtype, device=dev)
-    rank = torch.where(torch.from_numpy(mask).to(dev), rank, neg_inf)
+    rank = torch.where(htod(mask, dev), rank, neg_inf)
 
     xs_a, xs_b, lvls, scores, valids = [], [], [], [], []
     for l, ((off, lh, lw), quota) in enumerate(zip(offsets, quotas)):

@@ -14,6 +14,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.observability import htod
+
 
 def level_shapes(h: int, w: int, nlevels: int = 12, scale_factor: float = 1.1):
     """Static per-level (h, w) following OpenCV's cvRound(size / scale^l)."""
@@ -57,8 +59,8 @@ def build_pyramid(img, nlevels: int = 12, scale_factor: float = 1.1):
     dev = img.device
     levels = [img]
     for lh, lw in level_shapes(h, w, nlevels, scale_factor)[1:]:
-        rows = torch.from_numpy(resize_weights(h, lh).T.copy()).to(dev)
-        cols = torch.from_numpy(resize_weights(w, lw)).to(dev)
+        rows = htod(resize_weights(h, lh).T.copy(), dev)
+        cols = htod(resize_weights(w, lw), dev)
         levels.append(torch.matmul(torch.matmul(rows, img), cols))
     return levels
 

@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import SiftConfig
+from ..utils.observability import htod
 from . import kernels
 from .orb import top_k_stable
 
@@ -77,7 +78,7 @@ _PATCH_ROWS = 16       # patch rows gathered per step (bounds the index tensor)
 
 def _div(x, c: float):
     """x / c as a true float32 division on x's device."""
-    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+    return x / htod(c, x.device, x.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -140,9 +141,9 @@ def upsample2x(imgs):
     columns), each output the sum of its two weighted taps."""
     dev = imgs.device
     _, h, w = imgs.shape
-    j0, j1, w0, w1 = (torch.from_numpy(a).to(dev) for a in _upsample_taps(h))
+    j0, j1, w0, w1 = (htod(a, dev) for a in _upsample_taps(h))
     x = imgs[:, j0, :] * w0[:, None] + imgs[:, j1, :] * w1[:, None]
-    j0, j1, w0, w1 = (torch.from_numpy(a).to(dev) for a in _upsample_taps(w))
+    j0, j1, w0, w1 = (htod(a, dev) for a in _upsample_taps(w))
     return x[:, :, j0] * w0 + x[:, :, j1] * w1
 
 
@@ -752,9 +753,9 @@ def _device_tables(device):
     its window, the descriptor grid and its window, float32."""
     ori_lin, _, desc_lin = _grid_tables()
     ori_w, desc_w = _grid_weights()
-    return torch.cat([torch.from_numpy(ori_lin), ori_w.reshape(-1),
-                      torch.from_numpy(desc_lin),
-                      desc_w.reshape(-1)]).to(device)
+    return htod(torch.cat([torch.from_numpy(ori_lin), ori_w.reshape(-1),
+                           torch.from_numpy(desc_lin),
+                           desc_w.reshape(-1)]), device)
 
 
 @functools.lru_cache(maxsize=None)

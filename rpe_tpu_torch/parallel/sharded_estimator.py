@@ -25,6 +25,7 @@ from ..geometry.ransac import ransac_essential
 from ..geometry.recover_pose import recover_pose
 from ..pipeline.estimator import _prepare, _tensor, detect_features, \
     estimate_sequence_batched, match_features, zero_motion_gate
+from ..utils.observability import htod
 from .mesh import pair_pieces
 
 
@@ -102,7 +103,7 @@ def _estimate_pair_hyp_sharded(imgs1, imgs2, K, keys, cfg: EstimatorConfig,
         zm = torch.zeros_like(valid)
     use = valid & ~zm
     eye = torch.eye(3, dtype=R.dtype, device=dev)
-    t001 = torch.tensor([0.0, 0.0, 1.0], dtype=t.dtype, device=dev)
+    t001 = htod([0.0, 0.0, 1.0], dev, t.dtype)
     return {
         "R": torch.where(use[:, None, None], R, eye),
         "t": torch.where(use[:, None], t, t001),

@@ -13,6 +13,14 @@ the Lowe ratio test -- and one of K4).
 Entry points take `device=None`, meaning the CUDA card (utils/device.py),
 and set full float32 matmul precision before any work. `PoseEstimator`
 keeps the reference's exception-raising single-pair API.
+
+Under a torch profiler a call's work falls in four spans, one after
+another (utils/observability.py `span`): "rpe.detect" (detection),
+"rpe.match" (matching and the gathers of matched points), "rpe.ransac"
+(normalization and RANSAC with DEGENSAC and the ambiguity blend) and
+"rpe.pose" (recoverPose, the audits, the zero-motion gate and the final
+selection). Every launch of a call whose inputs are on its device lies in
+exactly one; inputs given on the host are copied before the first.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from ..ops.match import match_hamming, match_l2, match_ratio
 from ..ops.orb import orb_detect_and_describe
 from ..ops.sift import sift_detect_and_describe
 from ..utils.device import full_precision, resolve_device
+from ..utils.observability import htod, span
 from ..utils.sanitize import audit_finite, audit_rotation
 
 
@@ -87,44 +96,47 @@ def zero_motion_gate(pts1, pts2, mvalid, num_matches, zm_px: float):
 
 def _match_to_pose(det1, det2, K, keys, cfg: EstimatorConfig):
     """Match -> RANSAC -> recoverPose for P pairs of detections."""
-    audit_finite("detect", xy1=det1["xy"], xy2=det2["xy"],
-                 score1=det1["score"], score2=det2["score"])
-    matches = match_features(det1, det2, cfg)
-    pts1 = torch.gather(det1["xy"], 1,
-                        matches["idx1"][..., None].expand(-1, -1, 2))
-    pts2 = torch.gather(det2["xy"], 1,
-                        matches["idx2"][..., None].expand(-1, -1, 2))
-    mvalid = matches["valid"]
-    num_matches = mvalid.sum(-1, dtype=torch.int32)
+    with span("rpe.match"):
+        audit_finite("detect", xy1=det1["xy"], xy2=det2["xy"],
+                     score1=det1["score"], score2=det2["score"])
+        matches = match_features(det1, det2, cfg)
+        pts1 = torch.gather(det1["xy"], 1,
+                            matches["idx1"][..., None].expand(-1, -1, 2))
+        pts2 = torch.gather(det2["xy"], 1,
+                            matches["idx2"][..., None].expand(-1, -1, 2))
+        mvalid = matches["valid"]
+        num_matches = mvalid.sum(-1, dtype=torch.int32)
     p = pts1.shape[0]
 
-    n1 = normalize_points(pts1, K)
-    n2 = normalize_points(pts2, K)
-    thr_n = cfg.ransac.threshold_px / (0.5 * (K[0, 0] + K[1, 1]))
-    r = ransac_essential(
-        keys, n1, n2, mvalid, thr_n.expand(p),
-        num_hypotheses=cfg.ransac.num_hypotheses,
-        refit_rounds=cfg.ransac.refit_rounds,
-        solver=cfg.ransac.solver,
-        degensac=cfg.ransac.degensac,
-        lo=cfg.ransac.lo)
-    R, t, votes, _ = recover_pose(r["E"], n1, n2, mvalid,
-                                  inlier_mask=r["inlier_mask"])
+    with span("rpe.ransac"):
+        n1 = normalize_points(pts1, K)
+        n2 = normalize_points(pts2, K)
+        thr_n = cfg.ransac.threshold_px / (0.5 * (K[0, 0] + K[1, 1]))
+        r = ransac_essential(
+            keys, n1, n2, mvalid, thr_n.expand(p),
+            num_hypotheses=cfg.ransac.num_hypotheses,
+            refit_rounds=cfg.ransac.refit_rounds,
+            solver=cfg.ransac.solver,
+            degensac=cfg.ransac.degensac,
+            lo=cfg.ransac.lo)
 
-    audit_finite("ransac", E=r["E"])
-    audit_rotation("recover_pose", R)
-    valid = r["ok"] & (num_matches >= 5)
-    if cfg.ransac.zero_motion_px > 0.0:
-        zm = zero_motion_gate(pts1, pts2, mvalid, num_matches,
-                              cfg.ransac.zero_motion_px)
-        valid = valid | zm
-    else:
-        zm = torch.zeros_like(valid)
-    use = (valid & ~zm)
-    eye = torch.eye(3, dtype=R.dtype, device=R.device)
-    t001 = torch.tensor([0.0, 0.0, 1.0], dtype=t.dtype, device=t.device)
-    R = torch.where(use[:, None, None], R, eye)
-    t = torch.where(use[:, None], t, t001)
+    with span("rpe.pose"):
+        R, t, votes, _ = recover_pose(r["E"], n1, n2, mvalid,
+                                      inlier_mask=r["inlier_mask"])
+        audit_finite("ransac", E=r["E"])
+        audit_rotation("recover_pose", R)
+        valid = r["ok"] & (num_matches >= 5)
+        if cfg.ransac.zero_motion_px > 0.0:
+            zm = zero_motion_gate(pts1, pts2, mvalid, num_matches,
+                                  cfg.ransac.zero_motion_px)
+            valid = valid | zm
+        else:
+            zm = torch.zeros_like(valid)
+        use = (valid & ~zm)
+        eye = torch.eye(3, dtype=R.dtype, device=R.device)
+        t001 = htod([0.0, 0.0, 1.0], t.device, t.dtype)
+        R = torch.where(use[:, None, None], R, eye)
+        t = torch.where(use[:, None], t, t001)
     return {
         "R": R, "t": t, "valid": valid,
         "num_matches": num_matches, "num_inliers": r["num_inliers"],
@@ -163,7 +175,8 @@ def estimate_pairs_batched(imgs1, imgs2, K, keys,
     imgs2 = _tensor(imgs2, dev, torch.float32)
     b = imgs1.shape[0]
     with torch.no_grad():
-        dets = detect_features(torch.cat([imgs1, imgs2], dim=0), cfg)
+        with span("rpe.detect"):
+            dets = detect_features(torch.cat([imgs1, imgs2], dim=0), cfg)
         det1 = {k: v[:b] for k, v in dets.items()}
         det2 = {k: v[b:] for k, v in dets.items()}
         return _match_to_pose(det1, det2, K, keys, cfg)
@@ -178,7 +191,8 @@ def estimate_sequence_batched(imgs, K, keys,
     dev, K, keys = _prepare(device, K, keys)
     imgs = _tensor(imgs, dev, torch.float32)
     with torch.no_grad():
-        dets = detect_features(imgs, cfg)
+        with span("rpe.detect"):
+            dets = detect_features(imgs, cfg)
         det1 = {k: v[:-1] for k, v in dets.items()}
         det2 = {k: v[1:] for k, v in dets.items()}
         return _match_to_pose(det1, det2, K, keys, cfg)

@@ -1,10 +1,22 @@
-"""Timing, throughput and tracing (port of rpe_tpu/utils/observability.py).
+"""Timing, throughput, spans and counters (port of
+rpe_tpu/utils/observability.py).
 
+  * `span(name)`: a profiler range while a torch profiler is active
+    (`profiling()`), and nothing but that check otherwise. A span adds no
+    sync and reads no tensor; under a profile it is a host event on the
+    device trace's clock, inside whatever span encloses it on its thread.
+    It is a function-scope range (`_range`), recorded as an operator's
+    is: `torch.profiler.record_function`'s user annotation also casts a
+    range over the work it launched onto the device's timeline, where a
+    reader of the trace can take it for device work.
+  * `count(name, n)`: an in-memory counter that adds only while a profiler
+    is active; `counters()` reads them, `reset_counters()` clears them.
+    Nothing is written out.
+  * `htod(a, device)`: a table made on the host as a tensor on `device`,
+    its bytes counted under `HTOD` ("htod_bytes").
   * `StageTimer`: wall-clock per pipeline stage; each stage is also a
-    `torch.profiler.record_function` range, so a trace shows it beside the
-    device's work.
+    `span`.
   * `ThroughputMeter`: pairs/sec/chip.
-  * `trace`: a `torch.profiler` context over the CPU and, with a card, CUDA.
   * `log`: [LEVEL]-prefixed printing.
 
 `sync` is `torch.cuda.synchronize()` on the device of the first tensor it
@@ -18,6 +30,50 @@ import json
 import time
 
 import torch
+
+# True while a torch profiler (torch.profiler.profile or the autograd
+# profiler) records on this process
+profiling = torch._C._autograd._profiler_enabled
+
+HTOD = "htod_bytes"
+
+# a function-scope profiler range, no user annotation (see the docstring)
+_range = torch._C._profiler._RecordFunctionFast
+
+_OFF = contextlib.nullcontext()
+_COUNTS: dict[str, int] = {}
+
+
+def span(name: str):
+    """A context manager: a profiler range named `name` while a profiler
+    is active, else a shared no-op."""
+    if profiling():
+        return _range(name)
+    return _OFF
+
+
+def count(name: str, n: int) -> None:
+    """Add `n` to the counter `name` while a profiler is active."""
+    if profiling():
+        _COUNTS[name] = _COUNTS.get(name, 0) + int(n)
+
+
+def counters() -> dict[str, int]:
+    """The counters added since the last `reset_counters()`."""
+    return dict(_COUNTS)
+
+
+def reset_counters() -> None:
+    _COUNTS.clear()
+
+
+def htod(a, device, dtype=None) -> torch.Tensor:
+    """`a` (a numpy array, a CPU tensor or a list), made `dtype` on the
+    host when given, as a tensor on `device`: one copy, whose host bytes
+    `count` adds under HTOD. The device tensor is not read."""
+    t = torch.as_tensor(a, dtype=dtype)
+    count(HTOD, t.nbytes)
+    return t.to(device)
 
 
 def _first_tensor(x):
@@ -54,12 +110,10 @@ class StageTimer:
         self.counts: dict[str, int] = {}
 
     @contextlib.contextmanager
-    def stage(self, name: str, sync_on=None):
+    def stage(self, name: str):
         t0 = time.perf_counter()
-        with torch.profiler.record_function(name):
+        with span(name):
             yield
-            if sync_on is not None:
-                sync(sync_on)
         dt = time.perf_counter() - t0
         self.totals[name] = self.totals.get(name, 0.0) + dt
         self.counts[name] = self.counts.get(name, 0) + 1
@@ -96,17 +150,13 @@ class ThroughputMeter:
     def start(self):
         self._t0 = time.perf_counter()
 
-    def lap(self, pairs: int, sync_on=None):
+    def lap(self, pairs: int):
         """Record one dispatch of `pairs` pairs since start()/last lap()."""
-        if sync_on is not None:
-            sync(sync_on)
         t = time.perf_counter()
         self.laps.append((pairs, t - self._t0))
         self._t0 = t
 
-    def stop(self, pairs: int, sync_on=None):
-        if sync_on is not None:
-            sync(sync_on)
+    def stop(self, pairs: int):
         self.elapsed += time.perf_counter() - self._t0
         self.pairs += pairs
         if self.laps:
@@ -128,18 +178,3 @@ class ThroughputMeter:
         if t <= 0:
             return 0.0
         return p / t / self.n_chips
-
-
-@contextlib.contextmanager
-def trace(logdir: str):
-    """A torch.profiler trace of the block, written under `logdir` as a
-    Chrome trace (view in Perfetto or TensorBoard); yields the profiler,
-    whose `key_averages()` sum the device time by kernel."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-            activities=acts,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                str(logdir))) as prof:
-        yield prof

@@ -230,16 +230,26 @@ def test_port_keeps_its_own_decoder_and_no_path_into_the_reference():
                     assert "rpe_tpu" not in line, (f, line)
 
 
+# names of the reference's `__all__` the port leaves out on purpose: its
+# `utils.trace` wrote a TensorBoard trace that nothing called; a caller of
+# the port takes its own torch.profiler trace, which records the port's spans
+NOT_EXPORTED = {"utils": {"trace"}}
+
+
 @pytest.mark.parametrize("sub", ["ops", "geometry", "pipeline", "utils",
                                  "parallel"])
 def test_subpackages_export_the_reference_names(sub):
-    """Each subpackage's `__all__` is the reference's, every name bound;
-    the reference's fused matchers name the port's kernel-backed ones."""
+    """Each subpackage's `__all__` is the reference's (less NOT_EXPORTED),
+    every name bound; the reference's fused matchers name the port's
+    kernel-backed ones."""
     import importlib
 
     ref = importlib.import_module(f"rpe_tpu.{sub}")
     port = importlib.import_module(f"rpe_tpu_torch.{sub}")
-    assert port.__all__ == ref.__all__
+    dropped = NOT_EXPORTED.get(sub, set())
+    assert dropped <= set(ref.__all__)
+    assert port.__all__ == [n for n in ref.__all__ if n not in dropped]
+    assert not any(hasattr(port, n) for n in dropped)
     for name in port.__all__:
         assert getattr(port, name) is not None, name
     if sub == "ops":
