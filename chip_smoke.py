@@ -147,9 +147,10 @@ Phases (any failure exits non-zero before the final line):
      and --chunk 8: per-pair R and `valid` equal, K7, K4, P1-P4 per chunk.
 Every path's launch gate counts P1 once and P2 `P2_PER_CALL` times per
 estimator call (`P2_PER_CALL_LO` under LO-RANSAC; the 8-point solver no
-P1 and `P2_PER_CALL_8PT`), and a SIFT path P3 and
-P4 once per octave of its frames (`sift_launches`; rpe_tpu_torch/ops/
-kernels.py).
+P1 and `P2_PER_CALL_8PT`), P5-P8 as `SMALL_SOLVERS_PER_CALL` states for
+the path, and a SIFT path P3 and
+P4 once per octave of its frames (`geometry_launches`, `sift_launches`;
+rpe_tpu_torch/ops/kernels.py).
 The line before the last is the kernel JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -227,14 +228,10 @@ BEFORE_REDESIGN = {
 
 
 def _geometry_launches(kernels, ransac, calls):
-    """P1's and P2's launches in `calls` estimator calls at RansacConfig
-    `ransac` (ops/kernels.py counts): P2 as often as its solver and
-    LO-RANSAC make it, P1 only for the 5-point solver."""
-    if ransac.solver == "8pt":
-        return kernels.geometry_launches(calls, kernels.P2_PER_CALL_8PT,
-                                         five_point=False)
-    return kernels.geometry_launches(calls, kernels.P2_PER_CALL_LO
-                                     if ransac.lo else kernels.P2_PER_CALL)
+    """P1's, P2's and P5-P8's launches in `calls` estimator calls at
+    RansacConfig `ransac` (ops/kernels.py counts): P2 and P5-P8 as often as
+    its solver and LO-RANSAC make them, P1 only for the 5-point solver."""
+    return kernels.geometry_launches(calls, kernels.geometry_path(ransac))
 
 
 def fail(msg: str) -> None:
@@ -1001,6 +998,38 @@ def main() -> None:
     device["fixed_order_bmm"] = device_ms(
         lambda: [_p2_run(o) for o in ops], "bmm_kernel")
     del ops
+
+    # P5-P8 -- every call of the small solvers and of the threefry hash in
+    # one call of the ORB path on the 9 frames, recorded from that call:
+    # each bit-equal to its plain version run eagerly on the card (a NaN
+    # where it has a NaN), P5-P7 also with the batch split in two; timed as
+    # the call's whole set of launches of each kernel
+    small = _record_small(torch, lambda: estimate_sequence_batched(
+        frames, K, keys_np, cfg, device=dev))
+    for name, calls in small.items():
+        ok, split, n_out = _small_contract(torch, name, calls)
+        want = kernels.SMALL_SOLVERS_PER_CALL["5pt"][name]
+        check(f"{SMALL_LABELS[name]} {name}",
+              ok and split and len(calls) == want,
+              f"{len(calls)} calls of one ORB call (want {want}), shapes "
+              f"{sorted({tuple(a.shape) for a, *_ in calls})}, "
+              f"{n_out} outputs; bit-equal to the plain version run "
+              f"eagerly={ok}; bit-equal split in two={split}")
+        nbytes, nops = _small_work(name, calls)
+        b_ms, b_by = bound(nbytes, nops, FP32_OPS_PER_S)
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="rpe_tpu_torch/csrc/small_solvers.cu",
+            # port-only: no Pallas kernel; the reference's XLA chain
+            replaces=SMALL_REPLACES[name], max_abs_err=0.0,
+            ms=cuda_ms(lambda: _small_run(name, calls)),
+            plain_ms=cuda_ms(lambda: _small_run(name, calls, plain=True),
+                             iters=3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        queued[name] = queued_ms(lambda: _small_run(name, calls))
+        device[name] = device_ms(lambda: _small_run(name, calls),
+                                 SMALL_KERNEL_NAMES[name])
+    del small
 
     # P3, P4 -- every octave's inputs of one SIFT A chunk's detection (the
     # 9 frames), recorded from it; held by tests/torch_judges.py
@@ -1980,34 +2009,49 @@ def _vp_phase(torch, np, card, check, phase5, room):
             f"in the simulator layout in {time.perf_counter() - t0:.1f} s")
         argv = ["--step", "1", "--chunk", str(VP_CHUNK), "--no-video"]
         BatchProcessor.process_sequence = keep
+        dirs = vp_refine._dirs_from_lines_device
+        votes = [0]
+
+        def counted_dirs(*a, **k):
+            votes[0] += 1
+            return dirs(*a, **k)
+
+        vp_refine._dirs_from_lines_device = counted_dirs
         try:
             runs = {}
             for twin, env in (("host", None), ("device", {"RPE_VP_DEVICE":
                                                           "1"})):
                 torch.cuda.synchronize()
                 kernels.reset_launches()
+                votes[0] = 0
                 out, text = run(run_simulator_data.main,
                                 ["--data-root", str(room), "--results-dir",
                                  str(tmp / twin)] + argv, env=env)
                 torch.cuda.synchronize()
                 launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
                 proc, wall = procs[-1]
-                runs[twin] = out, text, proc, wall, launches
+                runs[twin] = out, text, proc, wall, launches, votes[0]
             cout, _ = run(run_simulator_data.main,
                           ["--data-root", str(small), "--results-dir",
                            str(tmp / "cpu_out")] + argv, device="cpu")
             cproc = procs[-1][0]
         finally:
             BatchProcessor.process_sequence = process_sequence
+            vp_refine._dirs_from_lines_device = dirs
 
         n_pairs = VP_FRAMES - 1
-        want = {k: 1 for k in main_path} | kernels.geometry_launches(1)
-        for twin, (out, text, proc, wall, launches) in runs.items():
+        for twin, (out, text, proc, wall, launches, n_votes) in runs.items():
+            # the device twin's vote draws its pairs on the card: a split
+            # and two randint (a split and two draws each), 7 hashes (P8)
+            want = {k: 1 for k in main_path} | kernels.geometry_launches(1)
+            want["threefry2x32"] += 7 * n_votes
             est, ev = out["estimated"], out["evaluation"]
             check(f"[vp {twin}] launches", launches == want,
                   f"{launches} (want K1-K4 and P1 once for the one chunk of "
-                  f"{VP_CHUNK} pairs, P2 {kernels.P2_PER_CALL} times, and "
-                  f"no other kernel)")
+                  f"{VP_CHUNK} pairs, P2 {kernels.P2_PER_CALL} times, P5-P8 "
+                  f"as the path makes them, P8 7 times more for each of "
+                  f"the device twin's {n_votes} votes, and no other "
+                  f"kernel)")
             check(f"[vp {twin}] every pair valid", bool(est["valid"].all())
                   and len(est["valid"]) == n_pairs,
                   f"{int(est['valid'].sum())} of {n_pairs} valid")
@@ -2368,7 +2412,8 @@ def _mesh_phase(torch, np, card, check, tmp, phase5, p5res, chunk_inputs):
                                            for o in one]))
     want = {"fast_harris": 1, "extract_brief": 1, "match_hamming": 1,
             "five_point_roots": 2, "five_point_coeffs": 2,
-            "fixed_order_bmm": kernels.P2_PAIRS_2D}
+            "fixed_order_bmm": kernels.P2_PAIRS_2D} \
+        | kernels.SMALL_SOLVERS_PAIRS_2D
     check("[mesh] estimate_pairs_2d on a (1, 2) mesh of the card",
           bool((v2d == v1).all()) and bool((d1[v1] < 1.0).all())
           and ran == want,
@@ -2642,7 +2687,8 @@ def _profile_main_path(torch, np, estimate, cfgs, card):
         "roots_kernel": "roots", "polish_kernel": "polish",
         "coeffs_kernel": "five_point_coeffs", "bmm_kernel": "fixed_order",
         "ori_hist_kernel": "sift_orientation_hist",
-        "desc_kernel": "sift_descriptor"}
+        "desc_kernel": "sift_descriptor"} | {
+        v: k for k, v in SMALL_KERNEL_NAMES.items()}
     keys = np.stack([np.array([0, i], np.uint32) for i in range(8)])
     for name, cfg in cfgs.items():
         with profile(activities=[ProfilerActivity.CPU,
@@ -2799,6 +2845,121 @@ def _record_p2(torch, run):
     finally:
         prods.fixed_order_group = group
     return launches, reads
+
+
+# P5-P8: the table's label, the reference's code each takes the place of,
+# the kernel's name as the profiler shows it, and its operations a problem
+# (an output element for P8), counted from csrc/small_solvers.cu: P6 the
+# Cardano eigenvalues 59, the two eigenvectors 118, the orthonormalization
+# and its fallback 55; P7 90; P8 126 integer operations; P5 `_small_ops`
+SMALL_LABELS = {"smallest_eigvec_sym": "P5", "eigh3x3_desc": "P6",
+                "essential_frame": "P7", "threefry2x32": "P8"}
+SMALL_REPLACES = {
+    "smallest_eigvec_sym": "rpe_tpu/geometry/eig.py:96",
+    "eigh3x3_desc": "rpe_tpu/geometry/eig.py:30",
+    "essential_frame": "rpe_tpu/geometry/epipolar.py:62",
+    "threefry2x32": "jax.random threefry2x32 (rpe_tpu/geometry/ransac.py:51)"}
+SMALL_KERNEL_NAMES = {
+    "smallest_eigvec_sym": "smallest_eigvec_kernel",
+    "eigh3x3_desc": "eigh3x3_kernel",
+    "essential_frame": "essential_frame_kernel",
+    "threefry2x32": "threefry_kernel"}
+SMALL_OPS = {"eigh3x3_desc": 232, "essential_frame": 90,
+             "threefry2x32": 126}
+
+
+def _small_ops(n, iters):
+    """P5's float operations for one n x n problem and `iters` rounds: the
+    trace and jitter, the Cholesky (two a product of the sums over k, then
+    a division, or the jitter's add, a clamp and a square root), and each
+    round's two triangular solves, norm and divisions."""
+    chol = sum(2 * j + (3 if i == j else 1) for i in range(n)
+               for j in range(i + 1))
+    return n + 2 + chol + iters * (2 * n * n + 3 * n + 2)
+
+
+def _record_small(torch, run):
+    """The arguments of every call of P5-P8's public functions that `run()`
+    makes, cloned as the call got them, by launch counter."""
+    from torch_judges import SMALL_SOLVERS, small_solvers_patched
+
+    calls = {k: [] for k in SMALL_SOLVERS}
+
+    def wrap(name, fn):
+        def rec(*a, **k):
+            a = a + tuple(k.values())       # `iters`, the one keyword
+            calls[name].append(tuple(x.clone() if torch.is_tensor(x) else x
+                                     for x in a))
+            return fn(*a)
+        return rec
+
+    with torch.no_grad(), small_solvers_patched(wrap):
+        run()
+    return calls
+
+
+def _small_fn(name, plain=False):
+    import importlib
+
+    from torch_judges import SMALL_SOLVERS
+
+    m, fn, pl = SMALL_SOLVERS[name]
+    return getattr(importlib.import_module(m), pl if plain else fn)
+
+
+def _small_run(name, calls, plain=False):
+    """Every recorded call of kernel `name` (or of its plain version)."""
+    fn = _small_fn(name, plain)
+    return [fn(*a) for a in calls]
+
+
+def _small_contract(torch, name, calls):
+    """(bit-equal to the plain version on every call, bit-equal with each
+    call's batch split in two (P5-P7; P8's words are exact integers),
+    outputs compared)."""
+    from torch_judges import same_bits
+
+    fn, plain = _small_fn(name), _small_fn(name, plain=True)
+
+    def outs(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    ok, split, n = True, True, 0
+    for a in calls:
+        got = outs(fn(*a))
+        ok &= all(same_bits(g, p) for g, p in zip(got, outs(plain(*a))))
+        n += sum(g.numel() for g in got)
+        h = a[0].shape[0] // 2
+        if name != "threefry2x32" and h:
+            parts = [outs(fn(*(x[:h] if torch.is_tensor(x) else x
+                               for x in a))),
+                     outs(fn(*(x[h:] if torch.is_tensor(x) else x
+                               for x in a)))]
+            split &= all(same_bits(torch.cat(c), g)
+                         for c, g in zip(zip(*parts), got))
+    return bool(ok), bool(split), n
+
+
+def _small_work(name, calls):
+    """Bytes (inputs read once, outputs written once) and float operations
+    of every recorded call of kernel `name`."""
+    nbytes = nops = 0
+    for a in calls:
+        out = _small_fn(name)(*a)
+        out = out if isinstance(out, tuple) else (out,)
+        nbytes += sum(x.numel() * x.element_size() for x in a
+                      if hasattr(x, "numel")) + sum(
+            o.numel() * o.element_size() for o in out)
+        if name == "smallest_eigvec_sym":
+            n = a[0].shape[-1]
+            nops += a[0].numel() // (n * n) * _small_ops(
+                n, a[1] if len(a) > 1 else 3)
+        else:
+            nops += out[0].numel() // (1 if name == "threefry2x32"
+                                       else out[0].shape[-1] if name ==
+                                       "eigh3x3_desc" else 9) \
+                * SMALL_OPS[name]
+    return nbytes, nops
 
 
 def _p2_run(terms):

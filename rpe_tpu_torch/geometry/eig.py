@@ -7,14 +7,21 @@ rpe_tpu/geometry/eig.py).
     eigenvector of the smallest eigenvalue of a symmetric PSD matrix.
 
 The closed forms are kept (not torch.linalg.eigh) so results follow the
-reference's arithmetic. Both batch over leading dimensions.
+reference's arithmetic. Both batch over leading dimensions. CUDA tensors
+launch P6 and P5 (csrc/small_solvers.cu), a thread per matrix, which give
+the plain versions' eager bits on the card in one launch where those make
+hundreds; CPU tensors take the plain versions.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
+
+from ..ops import kernels
 
 _EPS = 1e-20
 
@@ -30,9 +37,26 @@ def _cross(a, b):
 def eigh3x3_desc(A):
     """Symmetric 3x3 eigendecomposition, descending eigenvalues.
 
-    A: (..., 3, 3). Returns (w (..., 3) descending, V (..., 3, 3)
-    orthonormal columns, det(V) = +1).
+    A: (..., 3, 3) float32. Returns (w (..., 3) descending, V (..., 3, 3)
+    orthonormal columns, det(V) = +1), as `eigh3x3_desc_plain`. CUDA
+    tensors launch P6; CPU tensors take the plain version.
     """
+    if A.device.type == "cpu":
+        return eigh3x3_desc_plain(A)
+    A = _matrices("eigh3x3_desc", A, (3,))
+    batch = A.shape[:-2]
+    w = torch.empty((*batch, 3), dtype=torch.float32, device=A.device)
+    V = torch.empty((*batch, 3, 3), dtype=torch.float32, device=A.device)
+    problems = w.numel() // 3
+    if problems:
+        kernels.launch("eigh3x3_desc", _launchers(kernels.lib(
+            "small_solvers"))[0], A, A.data_ptr(), w.data_ptr(),
+            V.data_ptr(), problems)
+    return w, V
+
+
+def eigh3x3_desc_plain(A):
+    """Plain version of P6: `eigh3x3_desc` in eager PyTorch."""
     a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     a11, a12, a22 = A[..., 1, 1], A[..., 1, 2], A[..., 2, 2]
 
@@ -126,8 +150,55 @@ def _chol_solve_unrolled(L, b, n: int):
 
 
 def smallest_eigvec_sym(A, iters: int = 3):
-    """Eigenvector of the smallest eigenvalue of symmetric PSD A (..., n, n):
-    shifted inverse iteration on one unrolled Cholesky factorization."""
+    """Eigenvector of the smallest eigenvalue of symmetric PSD A (..., n, n)
+    float32: shifted inverse iteration on one unrolled Cholesky
+    factorization, as `smallest_eigvec_sym_plain`. CUDA tensors launch P5,
+    for n = 9 (the 8-point and DLT normal matrices) and n = 10 (K4's plain
+    version); CPU tensors take the plain version."""
+    if A.device.type == "cpu":
+        return smallest_eigvec_sym_plain(A, iters)
+    A = _matrices("smallest_eigvec_sym", A, (9, 10))
+    n = A.shape[-1]
+    out = torch.empty(A.shape[:-1], dtype=torch.float32, device=A.device)
+    problems = out.numel() // n
+    if problems:
+        kernels.launch("smallest_eigvec_sym", _launchers(kernels.lib(
+            "small_solvers"))[1], A, A.data_ptr(), out.data_ptr(), problems,
+            n, int(iters))
+    return out
+
+
+def _matrices(name, A, sizes):
+    """P5's and P6's precondition: float32 (..., n, n) with n in `sizes` on
+    a CUDA device; returns A contiguous (P5's trace sums the diagonal in
+    the order ATen takes for a matrix whose batch strides exceed its
+    diagonal's, as a contiguous one's do)."""
+    n = A.shape[-1]
+    if A.dim() < 2 or A.shape[-2] != n or n not in sizes \
+            or A.dtype != torch.float32:
+        raise ValueError(f"{name}: want float32 (..., n, n), n in {sizes}, "
+                         f"got {A.dtype} {tuple(A.shape)}")
+    A = A.contiguous()
+    kernels.require_cuda(name, A=A)
+    return A
+
+
+@functools.lru_cache(maxsize=None)
+def _launchers(lib):
+    """P6's and P5's launchers with their argument types set, once per
+    loaded library."""
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    eigh = lib.eigh3x3_launch
+    eigh.argtypes = [p, p, p, i64, p]
+    eigh.restype = i32
+    vec = lib.smallest_eigvec_launch
+    vec.argtypes = [p, p, i64, i32, i32, p]
+    vec.restype = i32
+    return eigh, vec
+
+
+def smallest_eigvec_sym_plain(A, iters: int = 3):
+    """Plain version of P5: `smallest_eigvec_sym` in eager PyTorch."""
     n = A.shape[-1]
     tr = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1)
     jitter = 1e-7 * tr + 1e-12

@@ -6,8 +6,12 @@ Points are normalized camera coordinates (K^-1 applied) unless noted.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from ..ops import kernels
 from ._products import matmul, matmuls
 from .eig import _cross
 
@@ -63,13 +67,57 @@ def essential_frame(E):
     """The rotations (U, Vt) of E's projection onto the essential manifold
     (`project_to_essential`), proper rotations, without forming the
     projection. The products are P2's on the card: E^T E, then E v0 and
-    E v1 in one launch."""
+    E v1 in one launch; the eigendecomposition is P6 and the rest P7."""
     from .eig import eigh3x3_desc
 
     EtE = matmul(E.transpose(-1, -2), E)
     evals, V = eigh3x3_desc(EtE)
-    s = torch.sqrt(torch.clamp_min(evals, 0.0))
     Ev0, Ev1 = matmuls((E, V[..., :, 0:1]), (E, V[..., :, 1:2]))
+    return frame_rotations(evals, V, Ev0, Ev1)
+
+
+def frame_rotations(evals, V, Ev0, Ev1):
+    """`essential_frame`'s own operations after its products: U from E v0
+    and E v1 (..., 3, 1) over the singular values sqrt(evals (..., 3)),
+    orthonormalized, and V (..., 3, 3), each with its last column flipped
+    where its determinant is negative. Returns (U, Vt). CUDA tensors launch
+    P7 (csrc/small_solvers.cu), a thread per matrix; CPU tensors take
+    `frame_rotations_plain`."""
+    if evals.device.type == "cpu":
+        return frame_rotations_plain(evals, V, Ev0, Ev1)
+    if any(t.dtype != torch.float32 for t in (evals, V, Ev0, Ev1)) \
+            or V.shape[-2:] != (3, 3) or evals.shape != V.shape[:-1] \
+            or Ev0.shape != V.shape[:-1] + (1,) or Ev1.shape != Ev0.shape:
+        raise ValueError("frame_rotations: want float32 evals (..., 3), V "
+                         "(..., 3, 3), Ev0 and Ev1 (..., 3, 1)")
+    kernels.require_cuda("essential_frame", evals=evals, V=V, Ev0=Ev0,
+                         Ev1=Ev1)
+    U = torch.empty_like(V)
+    Vf = torch.empty_like(V)
+    problems = evals.numel() // 3
+    if problems:
+        kernels.launch("essential_frame", _frame_launcher(kernels.lib(
+            "small_solvers")), V, evals.data_ptr(), V.data_ptr(),
+            Ev0.data_ptr(), Ev1.data_ptr(), U.data_ptr(), Vf.data_ptr(),
+            problems)
+    # Vt a transposed view, as the plain version returns it
+    return U, Vf.transpose(-1, -2)
+
+
+@functools.lru_cache(maxsize=None)
+def _frame_launcher(lib):
+    """P7's launcher with its argument types set, once per loaded
+    library."""
+    fn = lib.essential_frame_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def frame_rotations_plain(evals, V, Ev0, Ev1):
+    """Plain version of P7: `frame_rotations` in eager PyTorch."""
+    s = torch.sqrt(torch.clamp_min(evals, 0.0))
     u0 = Ev0[..., 0] / (s[..., 0:1] + _EPS)
     u1 = Ev1[..., 0] / (s[..., 1:2] + _EPS)
     u0 = u0 / (torch.linalg.vector_norm(u0, dim=-1, keepdim=True) + _EPS)

@@ -15,7 +15,9 @@ sequence of roundings as their plain PyTorch versions, and so does SIFT's
 (P3, P4), whose only difference from its plain version is then the order
 and precision of its sums. P1 (five_point_coeffs.cu) is built the same way
 and writes each of its fused multiply-adds as `__fma_rn`, so the source
-alone fixes how every output rounds.
+alone fixes how every output rounds. P5-P8 (small_solvers.cu) are built
+with -fmad=false too, so that each of their float32 operations rounds once,
+as the eager launch it replaces does.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made; the wrappers
 increment it right after a launch succeeds and nowhere else. A source may
@@ -26,7 +28,10 @@ of their own: they take the place of PyTorch's batched products in the
 geometry layer, whose summation order on the card depends on the batch
 (geometry/five_point.py `constraint_coeffs`, geometry/_products.py); P3
 and P4 likewise take the place of SIFT's sampling matmuls, histograms and
-norms (ops/sift.py `orientation_hist`, `descriptor`).
+norms (ops/sift.py `orientation_hist`, `descriptor`); P5-P8 take the
+place of RANSAC's eager chains of small per-matrix solvers and of the
+threefry hash (geometry/eig.py, geometry/epipolar.py `frame_rotations`,
+rng.py), each one launch where its plain version makes hundreds.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ SOURCES = {
     "five_point_coeffs": ("five_point_coeffs.cu", ["-fmad=false"]),
     "fixed_order": ("fixed_order.cu", []),
     "sift_sample": ("sift_sample.cu", ["-fmad=false"]),
+    "small_solvers": ("small_solvers.cu", ["-fmad=false"]),
 }
 
 # kernel name (as counted in LAUNCHES) -> library it launches from
@@ -74,6 +80,10 @@ KERNELS = {
     "fixed_order_bmm": "fixed_order",          # P2 (port-only)
     "sift_orientation_hist": "sift_sample",    # P3 (port-only)
     "sift_descriptor": "sift_sample",          # P4 (port-only)
+    "smallest_eigvec_sym": "small_solvers",    # P5 (port-only)
+    "eigh3x3_desc": "small_solvers",           # P6 (port-only)
+    "essential_frame": "small_solvers",        # P7 (port-only)
+    "threefry2x32": "small_solvers",           # P8 (port-only)
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -82,21 +92,43 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # P1 launches once per estimator call of the 5-point solver, P2 once at
 # each call of the geometry's fixed-order helpers (geometry/_products.py
 # `matmul`, `row_sum`, and `matmuls`, which takes up to four products in
-# one launch), a number fixed by the path (counted on the CPU by
-# tests/test_torch_batch_invariance.py)
+# one launch), P5-P8 once at each call of geometry/eig.py
+# `smallest_eigvec_sym` and `eigh3x3_desc`, geometry/epipolar.py
+# `frame_rotations` and rng.py `threefry2x32`: numbers fixed by the path
+# (counted on the CPU by tests/test_torch_batch_invariance.py)
 P2_PER_CALL = 43            # default RANSAC: 5-point, DEGENSAC, 2 refits
 P2_PER_CALL_LO = 63         # RansacConfig(lo=True)
 P2_PER_CALL_8PT = 44        # RansacConfig(solver="8pt"): no P1 (and no K4)
 P2_PAIRS_2D = 82            # estimate_pairs_2d on a (1, 2) mesh: RANSAC on
                             # each hyp shard, recover_pose once
+# P5, P6, P7, P8 per estimator call, by path (RANSAC's, then recoverPose's
+# one eigendecomposition and frame)
+SMALL_SOLVERS_PER_CALL = {
+    "5pt": {"smallest_eigvec_sym": 6, "eigh3x3_desc": 10,
+            "essential_frame": 10, "threefry2x32": 5},
+    "lo": {"smallest_eigvec_sym": 11, "eigh3x3_desc": 15,
+           "essential_frame": 15, "threefry2x32": 7},
+    "8pt": {"smallest_eigvec_sym": 7, "eigh3x3_desc": 10,
+            "essential_frame": 10, "threefry2x32": 5},
+}
+SMALL_SOLVERS_PAIRS_2D = {"smallest_eigvec_sym": 12, "eigh3x3_desc": 19,
+                          "essential_frame": 19, "threefry2x32": 12}
+_P2 = {"5pt": P2_PER_CALL, "lo": P2_PER_CALL_LO, "8pt": P2_PER_CALL_8PT}
 
 
-def geometry_launches(calls: int, p2: int = P2_PER_CALL,
-                      five_point: bool = True) -> dict[str, int]:
-    """P1's and P2's launches in `calls` estimator calls (P1 only where
-    the 5-point solver draws the hypotheses)."""
-    out = {"fixed_order_bmm": calls * p2}
-    if five_point:
+def geometry_path(ransac) -> str:
+    """The geometry's launch path of RansacConfig `ransac`: "8pt" for the
+    8-point solver, "lo" for LO-RANSAC, else "5pt"."""
+    return "8pt" if ransac.solver == "8pt" else "lo" if ransac.lo else "5pt"
+
+
+def geometry_launches(calls: int, path: str = "5pt") -> dict[str, int]:
+    """P1's, P2's and P5-P8's launches in `calls` estimator calls on
+    `path` (`geometry_path`; P1 only where the 5-point solver draws the
+    hypotheses)."""
+    out = {"fixed_order_bmm": calls * _P2[path]}
+    out |= {k: calls * n for k, n in SMALL_SOLVERS_PER_CALL[path].items()}
+    if path != "8pt":
         out["five_point_coeffs"] = calls
     return out
 

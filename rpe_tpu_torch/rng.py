@@ -13,14 +13,20 @@ Semantics are those of `jax.random` with `jax_threefry_partitionable=True`
 64-bit pair (0, i), and 32-bit draws are `bits1 ^ bits2` of the hash.
 
 A key is an int64 tensor of shape (..., 2) holding two uint32 words; leading
-dimensions batch independent keys (the pair axis of the estimator).
+dimensions batch independent keys (the pair axis of the estimator). On the
+card the hash is one launch of P8 (csrc/small_solvers.cu), a thread per
+output element, where its plain version makes ~176.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
+
+from .ops import kernels
 
 _MASK = 0xFFFFFFFF
 _ROT0 = (13, 15, 26, 6)
@@ -33,7 +39,77 @@ def _rotl(x, d: int):
 
 def threefry2x32(k1, k2, x1, x2):
     """Threefry-2x32 hash (20 rounds) of the counter pair (x1, x2) under the
-    key (k1, k2). All int64 tensors holding uint32 values, broadcastable."""
+    key (k1, k2). All int64 tensors holding uint32 values, broadcastable;
+    returns two int64 tensors of the broadcast shape. CUDA tensors launch
+    P8; CPU tensors take `threefry2x32_plain`."""
+    if k1.device.type == "cpu":
+        return threefry2x32_plain(k1, k2, x1, x2)
+    ops = (k1, k2, x1, x2)
+    if any(t.dtype != torch.int64 for t in ops):
+        raise ValueError(f"threefry2x32: want int64, got "
+                         f"{[t.dtype for t in ops]}")
+    if len({t.device for t in ops}) != 1:
+        raise ValueError(f"threefry2x32: tensors must share one CUDA device, "
+                         f"got {[str(t.device) for t in ops]}")
+    shape, g = _broadcast_args(tuple((t.shape, t.stride()) for t in ops))
+    o1 = torch.empty(shape, dtype=torch.int64, device=k1.device)
+    o2 = torch.empty(shape, dtype=torch.int64, device=k1.device)
+    if g.total:
+        kernels.launch("threefry2x32", _launcher(kernels.lib(
+            "small_solvers")), k1, k1.data_ptr(), k2.data_ptr(),
+            x1.data_ptr(), x2.data_ptr(), o1.data_ptr(), o2.data_ptr(),
+            ctypes.addressof(g))
+    return o1, o2
+
+
+_MAX_DIMS = 6               # csrc/small_solvers.cu MAX_DIMS
+
+
+class _Broadcast(ctypes.Structure):
+    """csrc/small_solvers.cu `Broadcast`."""
+    _fields_ = [("size", ctypes.c_longlong * _MAX_DIMS),
+                ("stride", (ctypes.c_longlong * _MAX_DIMS) * 4),
+                ("total", ctypes.c_longlong), ("ndim", ctypes.c_int)]
+
+
+@functools.lru_cache(maxsize=1024)
+def _broadcast_args(keys):
+    """The output shape and P8's argument block for operands of these
+    (shape, stride) keys: each operand's strides over the broadcast shape,
+    0 where it broadcasts (the draws' shapes repeat every call, so each is
+    planned once)."""
+    shape = torch.broadcast_shapes(*(k[0] for k in keys))
+    if len(shape) > _MAX_DIMS:
+        raise ValueError(f"threefry2x32: {len(shape)} dimensions, at most "
+                         f"{_MAX_DIMS}")
+    g = _Broadcast()
+    g.ndim = len(shape)
+    g.total = math.prod(shape)
+    for d, n in enumerate(shape):
+        g.size[d] = n
+    for t, (s, st) in enumerate(keys):
+        off = len(shape) - len(s)
+        for d in range(off, len(shape)):
+            g.stride[t][d] = 0 if s[d - off] == 1 else st[d - off]
+    return shape, g
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(lib):
+    """P8's launcher with its argument types set, once per loaded library,
+    after holding the argument block's layout to the source's."""
+    if (lib.small_solvers_broadcast_size() != ctypes.sizeof(_Broadcast)
+            or lib.small_solvers_max_dims() != _MAX_DIMS):
+        raise RuntimeError("small_solvers.cu Broadcast disagrees with "
+                           "rng.py")
+    fn = lib.threefry_launch
+    fn.argtypes = [ctypes.c_void_p] * 8
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def threefry2x32_plain(k1, k2, x1, x2):
+    """Plain version of P8: `threefry2x32` in eager int64 arithmetic."""
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     x = [(x1 + ks[0]) & _MASK, (x2 + ks[1]) & _MASK]
     for i in range(5):

@@ -2,9 +2,10 @@
 """The port's fixed-order kernels -- P1 (the 5-point coefficients,
 csrc/five_point_coeffs.cu), P2 (the geometry's products,
 csrc/fixed_order.cu), P3 and P4 (SIFT's orientation histogram and
-descriptor, csrc/sift_sample.cu) -- against another version of the port on
-the card: the elements whose bits differ, the poses of every path, and the
-times of both in turns.
+descriptor, csrc/sift_sample.cu), P5-P8 (RANSAC's small solvers and the
+threefry hash, csrc/small_solvers.cu) -- against another version of the
+port on the card: the elements whose bits differ, the poses of every path,
+and the times of both in turns.
 
     python3 scripts/fixed_order_against.py --against ROOT [--kernels P1 P3]
                                            # ROOT holds another
@@ -33,13 +34,20 @@ chip_smoke.py makes them (`make_sequence(9, 376, 1241)`, 8 pairs):
     elements whose bits differ in the histograms, samples and bins (P3),
     in the descriptors, samples and sums before normalising (P4); the
     repo's P3 histogram against `p3_serial` of its own samples and bins;
+  - P5-P8: every call of one ORB call (EstimatorConfig()) to
+    `smallest_eigvec_sym`, `eigh3x3_desc`, `threefry2x32` and
+    `essential_frame` (P7 with the products and P6 around it), recorded
+    from the repo's call, through the repo's functions and ROOT's of the
+    same name (before P5-P8, ROOT's are the eager chains): elements whose
+    bits differ, a NaN equal to a NaN;
   - the paths of chip_smoke.py's phase 4 (`PATHS`) through both versions'
     `estimate_sequence_batched`: pairs whose R, t, valid, num_inliers or
     num_matches differ in any bit;
   - times in turns (ROOT, repo, repo, ROOT) by `kernel_breakdown.measure`
     (flushed, queued, host, device): P1 as one launch on the main path's
     samples, P2 as each version's launches of one ORB call, P3 and P4 as
-    the chunk's five; and the ORB and SIFT A calls end to end (host clock
+    the chunk's five, P5-P8 as the ORB call's calls of the four functions;
+    and the ORB and SIFT A calls end to end (host clock
     around a call and a synchronise, median of 5).
 """
 
@@ -72,7 +80,7 @@ from rpe_tpu_torch.utils.device import full_precision  # noqa: E402
 from rpe_tpu_torch.utils.synthetic import make_sequence  # noqa: E402
 
 OTHER = "other_rpe_tpu_torch"
-KERNELS = ("P1", "P2", "P3", "P4")
+KERNELS = ("P1", "P2", "P3", "P4", "P5-P8")
 # chip_smoke.py phase 4's paths: (label, EstimatorConfig options, environment)
 PATHS = [
     ("ORB cross-check", {}, {}),
@@ -99,7 +107,12 @@ PATHS = [
 FIELDS = ("R", "t", "valid", "num_inliers", "num_matches")
 # the library of each kernel, for the ptxas lines
 SOURCE = {"P1": "five_point_coeffs", "P2": "fixed_order",
-          "P3": "sift_sample", "P4": "sift_sample"}
+          "P3": "sift_sample", "P4": "sift_sample",
+          "P5-P8": "small_solvers"}
+# P5-P8: the function each version is called through, by module
+SMALL = {"smallest_eigvec_sym": "geometry.eig",
+         "eigh3x3_desc": "geometry.eig",
+         "essential_frame": "geometry.epipolar", "threefry2x32": "rng"}
 
 
 def load_other(root):
@@ -225,6 +238,47 @@ def compare_sift(o_sift, ori_calls, desc_calls, which):
                   f"(of {mine[0].numel()} each)", flush=True)
 
 
+def compare_small(other, frames, K, keys, dev):
+    """P5-P8: the calls of one ORB call through both versions' functions;
+    returns (the repo's, ROOT's) runs of all of them, for the times."""
+    from rpe_tpu_torch.geometry import epipolar, recover_pose
+
+    es = []
+    ef = epipolar.essential_frame
+
+    def rec(E):
+        es.append((E.clone(),))
+        return ef(E)
+
+    epipolar.essential_frame = recover_pose.essential_frame = rec
+    try:
+        calls = chip_smoke._record_small(torch, lambda: (
+            estimate_sequence_batched(frames, K, keys, EstimatorConfig(),
+                                      device=dev)))
+    finally:
+        epipolar.essential_frame = recover_pose.essential_frame = ef
+    calls["essential_frame"] = es
+    runs = []
+    for name, module in SMALL.items():
+        mine = getattr(importlib.import_module(f"rpe_tpu_torch.{module}"),
+                       name)
+        old = getattr(other(module), name)
+        moved = total = 0
+        for a in calls[name]:
+            m, o = mine(*a), old(*a)
+            for x, y in zip(m if isinstance(m, tuple) else (m,),
+                            o if isinstance(o, tuple) else (o,)):
+                same = ((x == y) | (torch.isnan(x) & torch.isnan(y))
+                        if x.is_floating_point() else x == y)
+                moved += int((~same).sum())
+                total += x.numel()
+        print(f"P5-P8 [{name}]: {len(calls[name])} calls, elements whose "
+              f"bits differ from ROOT's: {moved} of {total}", flush=True)
+        runs.append((mine, old, calls[name]))
+    return (lambda: [f(*a) for f, _, c in runs for a in c],
+            lambda: [f(*a) for _, f, c in runs for a in c])
+
+
 def compare_paths(o_cfg, o_est, frames, K, keys, dev):
     """Every phase 4 path through both versions: pairs that differ."""
     for label, opts, gates in PATHS:
@@ -310,6 +364,10 @@ def main():
             sets["P4 (one SIFT A chunk)"] = (
                 lambda: [sift.descriptor(*d) for d in desc_calls],
                 lambda: [o_sift.descriptor(*d) for d in desc_calls])
+
+    if "P5-P8" in which:
+        sets["P5-P8 (one ORB call)"] = compare_small(other, frames, K, keys,
+                                                     dev)
 
     compare_paths(o_cfg, o_est, frames, K, keys, dev)
 

@@ -344,6 +344,57 @@ def test_p2_launches_per_call(monkeypatch, path):
                         "8pt": kernels.P2_PER_CALL_8PT}[path]
 
 
+@pytest.mark.parametrize("path", ["5pt", "lo", "8pt", "pairs_2d"])
+def test_small_solver_launches_per_call(monkeypatch, path):
+    """ops/kernels.py's P5-P8 counts per estimator call (the launch gates
+    of chip_smoke.py and tests/test_torch_gpu.py): the calls of
+    `smallest_eigvec_sym`, `eigh3x3_desc`, `frame_rotations` and
+    `threefry2x32` on the ORB path, under LO-RANSAC, with the 8-point
+    solver and in `estimate_pairs_2d` on a (1, 2) mesh, counted on the
+    CPU. K4's plain version, which calls `smallest_eigvec_sym` on the CPU,
+    is the kernel K4 on the card, so its calls are not counted."""
+    from torch_judges import small_solvers_patched
+
+    from rpe_tpu_torch.ops import kernels
+    from rpe_tpu_torch.parallel.mesh import Mesh
+    from rpe_tpu_torch.parallel.sharded_estimator import estimate_pairs_2d
+
+    calls = {k: 0 for k in kernels.SMALL_SOLVERS_PER_CALL["5pt"]}
+    k4 = [False]
+
+    def wrap(name, fn):
+        def counted(*a, **k):
+            calls[name] += not k4[0]
+            return fn(*a, **k)
+        return counted
+
+    plain_k4 = tfp.solve_roots_plain
+
+    def k4_plain(*a):
+        k4[0] = True
+        try:
+            return plain_k4(*a)
+        finally:
+            k4[0] = False
+
+    monkeypatch.setattr(tfp, "solve_roots_plain", k4_plain)
+    imgs, keys = _scene(2)
+    with small_solvers_patched(wrap):
+        if path == "pairs_2d":
+            estimate_pairs_2d(imgs[:-1], imgs[1:], K, keys, TINY,
+                              Mesh([["cpu", "cpu"]], ("pairs", "hyp")))
+        else:
+            cfg = EstimatorConfig(orb=TINY.orb, matcher=TINY.matcher,
+                                  ransac=RansacConfig(
+                                      num_hypotheses=128, lo=path == "lo",
+                                      solver="8pt" if path == "8pt"
+                                      else "5pt"))
+            assert kernels.geometry_path(cfg.ransac) == path
+            estimate_sequence_batched(imgs, K, keys, cfg, device="cpu")
+    assert calls == (kernels.SMALL_SOLVERS_PAIRS_2D if path == "pairs_2d"
+                     else kernels.SMALL_SOLVERS_PER_CALL[path])
+
+
 # tests/test_torch_sift.py's size: 120x400 frames, 512 slots; its config A
 # cut to size
 SIFT_H, SIFT_W = 120, 400

@@ -36,7 +36,7 @@ from rpe_tpu_torch.utils.synthetic import float_descriptors, make_sequence, \
     rotation_error_deg
 from torch_gates import default_extraction_gates  # noqa: F401
 from torch_judges import p1_judge, p2_judge, p2_serial, p3_judge, \
-    p3_references, p3_serial, p4_judge
+    p3_references, p3_serial, p4_judge, plain_small_solvers, same_bits
 
 pytestmark = pytest.mark.gpu
 
@@ -53,14 +53,14 @@ ORB_RATIO = dataclasses.replace(SMALL, matcher=dataclasses.replace(
 BIG = 3.0e38
 
 
-GEOMETRY = {"five_point_coeffs", "fixed_order_bmm"}   # P1, P2
+SMALL_SOLVERS = set(kernels.SMALL_SOLVERS_PER_CALL["5pt"])     # P5-P8
+GEOMETRY = {"five_point_coeffs", "fixed_order_bmm"} | SMALL_SOLVERS
 SIFT_KERNELS = {"sift_orientation_hist", "sift_descriptor"}   # P3, P4
 
 
 def geometry(calls, lo=False):
-    """P1's and P2's launches in `calls` estimator calls."""
-    return kernels.geometry_launches(
-        calls, kernels.P2_PER_CALL_LO if lo else kernels.P2_PER_CALL)
+    """P1's, P2's and P5-P8's launches in `calls` estimator calls."""
+    return kernels.geometry_launches(calls, "lo" if lo else "5pt")
 
 
 @pytest.fixture(scope="module")
@@ -696,8 +696,7 @@ SOLVER_PROFILES = {  # RansacConfig(solver="8pt") and the ORB profiles
     "8pt": (dataclasses.replace(SMALL, ransac=dataclasses.replace(
         SMALL.ransac, solver="8pt")),
         {"fast_harris": 1, "extract_brief": 1, "match_hamming": 1}
-        | kernels.geometry_launches(1, kernels.P2_PER_CALL_8PT,
-                                    five_point=False)),
+        | kernels.geometry_launches(1, "8pt")),
     "orb2000": (profile_config("orb2000"), None),
     "orb1000": (profile_config("orb1000"), None),
 }
@@ -1259,3 +1258,175 @@ def test_sift_options_run_on_the_card(scene, cuda, option):
         found, close = _reproduced(ref, {k: v[i].cpu().numpy()
                                          for k, v in got.items()})
         assert found >= 0.98 and close >= 0.98, (i, found, close)
+
+
+# P5-P8 (csrc/small_solvers.cu): a thread per problem, every output bit that
+# of the plain version run eagerly on the card (a NaN where it has a NaN)
+
+SMALL_BATCHES = [(32, 1), (32, 8), (32, 16), (32, 64), (32, 2560)]
+
+
+def _spd(cuda, batch, n, seed):
+    """Symmetric positive semi-definite float32 (*batch, n, n): M^T M of
+    (n + 3) x n Gaussian rows with scales spread over decades."""
+    g = np.random.default_rng(seed)
+    m = g.normal(size=(*batch, n + 3, n)) * np.exp(g.normal(
+        size=(*batch, 1, 1)) * 2.0)
+    m = torch.from_numpy(m.astype(np.float32)).to(cuda)
+    return m.transpose(-1, -2) @ m
+
+
+def _degenerate(cuda, n, seed=5):
+    """n x n matrices a solver must survive: zero, the identity, rank 1,
+    repeated eigenvalues, a NaN and an infinity."""
+    g = np.random.default_rng(seed)
+    v = torch.from_numpy(g.normal(size=n).astype(np.float32)).to(cuda)
+    rep = torch.ones(n, device=cuda)
+    rep[-1] = 0.25
+    nan = torch.eye(n, device=cuda)
+    nan[0, 1] = nan[1, 0] = float("nan")
+    inf = torch.eye(n, device=cuda)
+    inf[-1, -1] = float("inf")
+    return torch.stack([torch.zeros(n, n, device=cuda), torch.eye(
+        n, device=cuda), v[:, None] * v[None], torch.diag(rep),
+        2.0 * torch.eye(n, device=cuda) + v[:, None] * v[None], nan, inf])
+
+
+def _launched(name, fn):
+    """fn()'s result, after asserting it made one launch of `name` and no
+    other."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = fn()
+    assert {k: n for k, n in kernels.LAUNCHES.items() if n} == {name: 1}
+    return out
+
+
+def _assert_same(got, want):
+    for a, b in zip(got, want):
+        assert same_bits(a, b), (a.shape, a.dtype)
+
+
+@pytest.mark.parametrize("batch", SMALL_BATCHES + ["degenerate"])
+@pytest.mark.parametrize("n,iters", [(9, 3), (10, 4), (9, 1)])
+def test_smallest_eigvec_kernel_is_its_plain_version(cuda, n, iters, batch):
+    """P5 at n = 9 (the normal matrices) and n = 10 with 4 rounds (K4's
+    plain version): one launch, the plain version's bits, and the same
+    bits with the batch split in two."""
+    from rpe_tpu_torch.geometry import eig
+
+    A = _degenerate(cuda, n) if batch == "degenerate" else _spd(
+        cuda, batch, n, seed=n * batch[1])
+    got = _launched("smallest_eigvec_sym",
+                    lambda: eig.smallest_eigvec_sym(A, iters))
+    _assert_same([got], [eig.smallest_eigvec_sym_plain(A, iters)])
+    h = A.shape[0] // 2
+    _assert_same([torch.cat([eig.smallest_eigvec_sym(A[:h], iters),
+                             eig.smallest_eigvec_sym(A[h:], iters)])], [got])
+
+
+@pytest.mark.parametrize("batch", SMALL_BATCHES + ["degenerate", "frame"])
+def test_eigh3x3_kernel_is_its_plain_version(cuda, batch):
+    """P6: one launch, the plain version's eigenvalues and vectors bit for
+    bit (on E^T E of Gaussian E too), and the same with the batch split."""
+    from rpe_tpu_torch.geometry import eig
+
+    if batch == "frame":
+        E = _spd(cuda, (32, 2560), 3, seed=1)[..., :3, :3] - 1.0
+        A = E.transpose(-1, -2) @ E
+    else:
+        A = _degenerate(cuda, 3) if batch == "degenerate" else _spd(
+            cuda, batch, 3, seed=batch[1])
+    got = _launched("eigh3x3_desc", lambda: eig.eigh3x3_desc(A))
+    _assert_same(got, eig.eigh3x3_desc_plain(A))
+    h = A.shape[0] // 2
+    parts = [eig.eigh3x3_desc(A[:h]), eig.eigh3x3_desc(A[h:])]
+    _assert_same([torch.cat(x) for x in zip(*parts)], got)
+
+
+def _essentials(cuda, batch, seed):
+    g = np.random.default_rng(seed)
+    E = torch.from_numpy(g.normal(size=(*batch, 3, 3)).astype(
+        np.float32)).to(cuda)
+    if batch[-1] >= 8:
+        E[:, 0] = 0.0                                    # zero
+        E[:, 1] = E[:, 2, :, :1] * E[:, 2, :1, :]        # rank 1
+        E[:, 3, 0, 0] = float("nan")
+        E[:, 4, 1, 2] = float("inf")
+        E[:, 5] = torch.eye(3, device=cuda)              # repeated
+    return E
+
+
+@pytest.mark.parametrize("batch", SMALL_BATCHES)
+def test_essential_frame_kernel_is_its_plain_version(cuda, batch):
+    """P7 after P2 and P6 (`essential_frame` on the card): one launch of
+    each per call, U and Vt the plain version's bits and strides (Vt a
+    transposed view), also on zero, rank-1, non-finite and repeated E,
+    and the same bits with the batch split in two."""
+    from rpe_tpu_torch.geometry import epipolar
+
+    E = _essentials(cuda, batch, seed=batch[-1])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    U, Vt = epipolar.essential_frame(E)
+    assert {k: n for k, n in kernels.LAUNCHES.items() if n} == {
+        "fixed_order_bmm": 2, "eigh3x3_desc": 1, "essential_frame": 1}
+    with plain_small_solvers():
+        Up, Vtp = epipolar.essential_frame(E)
+    _assert_same((U, Vt), (Up, Vtp))
+    assert U.stride() == Up.stride() and Vt.stride() == Vtp.stride()
+    h = E.shape[0] // 2
+    parts = [epipolar.essential_frame(E[:h]), epipolar.essential_frame(E[h:])]
+    _assert_same([torch.cat(x) for x in zip(*parts)], (U, Vt))
+
+
+@pytest.mark.parametrize("shape", [(256, 5), (1,), (2,), (2560, 1)])
+def test_threefry_kernel_is_its_plain_version(cuda, shape):
+    """P8 over the broadcast of 32 keys and a draw's counters (the hash of
+    `split`, `uniform`, `randint`), over `fold_in`'s and over keys and
+    counters past 32 bits: one launch, the plain version's words."""
+    g = np.random.default_rng(len(shape) + shape[0])
+    keys = torch.from_numpy(g.integers(0, 2 ** 32, (32, 2))).to(cuda)
+    lo = torch.arange(int(np.prod(shape)), device=cuda).reshape(shape)
+    k1 = keys[:, 0].reshape(32, *([1] * len(shape)))
+    k2 = keys[:, 1].reshape(32, *([1] * len(shape)))
+    args = (k1, k2, torch.zeros_like(lo), lo)
+    got = _launched("threefry2x32", lambda: rng.threefry2x32(*args))
+    assert got[0].shape == (32, *shape)
+    _assert_same(got, rng.threefry2x32_plain(*args))
+    d = torch.full((32,), 7, device=cuda)
+    args = (keys[:, 0], keys[:, 1], torch.zeros_like(d), d)
+    _assert_same(rng.threefry2x32(*args), rng.threefry2x32_plain(*args))
+    wide = torch.from_numpy(g.integers(-2 ** 62, 2 ** 62, (4, 32))).to(cuda)
+    _assert_same(rng.threefry2x32(*wide), rng.threefry2x32_plain(*wide))
+
+
+PLAIN_PATHS = {
+    "5pt": SMALL,
+    "lo": dataclasses.replace(SMALL, ransac=dataclasses.replace(
+        SMALL.ransac, lo=True)),
+    "8pt": dataclasses.replace(SMALL, ransac=dataclasses.replace(
+        SMALL.ransac, solver="8pt")),
+    "sift_a": SIFT_A,
+}
+
+
+@pytest.mark.parametrize("path", list(PLAIN_PATHS))
+def test_small_solvers_leave_every_path_bit_equal(scene, cuda, path):
+    """The estimator with P5-P8 and with their plain versions (the eager
+    chains) on the card: R, t, valid, num_inliers and num_matches bit for
+    bit, at the path's launch counts."""
+    frames, K, _, _ = scene
+    cfg = PLAIN_PATHS[path]
+    keys = torch.stack([rng.PRNGKey(2 ** 31 + i) for i in range(2)])
+    kernels.reset_launches()
+    out = estimate_sequence_batched(frames, K, keys, cfg)
+    small = kernels.geometry_launches(1, path if path != "sift_a" else "5pt")
+    assert {k: kernels.LAUNCHES[k] for k in SMALL_SOLVERS} == {
+        k: small[k] for k in SMALL_SOLVERS}
+    with plain_small_solvers():
+        kernels.reset_launches()
+        plain = estimate_sequence_batched(frames, K, keys, cfg)
+        assert not any(kernels.LAUNCHES[k] for k in SMALL_SOLVERS)
+    for k in ("R", "t", "valid", "num_inliers", "num_matches"):
+        assert torch.equal(out[k], plain[k]), k

@@ -60,6 +60,43 @@ def test_uniform_bit_equal_at_ransac_shapes(shape):
         ks.astype(np.int64), rng.split(convert.keys_from_numpy(keys)).numpy())
 
 
+def _threefry_serial(k1, k2, x1, x2):
+    """Threefry-2x32, 20 rounds (Salmon et al., Random123), of one counter
+    pair under one key, in Python integers."""
+    m = 0xFFFFFFFF
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    a, b = (x1 + ks[0]) & m, (x2 + ks[1]) & m
+    for i in range(5):
+        for r in ((13, 15, 26, 6), (17, 29, 16, 24))[i % 2]:
+            a = (a + b) & m
+            b = (((b << r) & m) | (b >> (32 - r))) ^ a
+        a = (a + ks[(i + 1) % 3]) & m
+        b = (b + ks[(i + 2) % 3] + i + 1) & m
+    return a, b
+
+
+def test_threefry_plain_is_the_serial_hash():
+    """`threefry2x32_plain` (P8's plain version) word for word against a
+    serial hash in Python integers, on seeded keys and counters broadcast
+    as `split` and `fold_in` broadcast them; the serial hash gives
+    Random123's known answers."""
+    assert _threefry_serial(0, 0, 0, 0) == (0x6B200159, 0x99BA4EFE)
+    assert _threefry_serial(0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF,
+                            0xFFFFFFFF) == (0x1CB996FC, 0xBB002BE7)
+    assert _threefry_serial(0x13198A2E, 0x03707344, 0x243F6A88,
+                            0x85A308D3) == (0xC4923A9C, 0x483DF7A0)
+    g = np.random.default_rng(23)
+    keys = torch.from_numpy(g.integers(0, 2 ** 32, (6, 2)))
+    ctr = torch.from_numpy(g.integers(0, 2 ** 32, (2, 5)))
+    got = rng.threefry2x32_plain(keys[:, 0, None], keys[:, 1, None],
+                                 ctr[0], ctr[1])
+    want = [[_threefry_serial(*k, *c) for c in ctr.T.tolist()]
+            for k in keys.tolist()]
+    assert got[0].shape == (6, 5)
+    assert torch.stack(got, -1).tolist() == [[list(w) for w in row]
+                                             for row in want]
+
+
 # ---- configuration -----------------------------------------------------------
 
 @pytest.mark.parametrize("name", jcfg.PROFILE_NAMES)
@@ -312,8 +349,9 @@ def test_every_launch_goes_through_the_device_guard():
         assert "stream_ptr(" not in text, f
         assert "kernels.check(" not in text, f
         launches += text.count("kernels.launch(")
-    # K1, K2/K12, K8-K10, K3, K7/K6-L2, K6-H, K4, K5, P1, P2, P3, P4
-    assert launches == 12
+    # K1, K2/K12, K8-K10, K3, K7/K6-L2, K6-H, K4, K5, P1, P2, P3, P4,
+    # P5-P8
+    assert launches == 16
 
 
 def _functions(path):
@@ -375,6 +413,51 @@ def test_fixed_order_sites_reach_their_kernels():
         assert "fixed_order_group" in _calls(prod[name])
     assert "_launch" in _calls(prod["fixed_order_group"])
     assert "kernels.launch" in _calls(prod["_launch"])
+
+
+# P5-P8: module -> public function -> (its plain version, its launch
+# counter)
+SMALL_SOLVER_SITES = {
+    "geometry/eig.py": {
+        "smallest_eigvec_sym": ("smallest_eigvec_sym_plain",
+                                "smallest_eigvec_sym"),
+        "eigh3x3_desc": ("eigh3x3_desc_plain", "eigh3x3_desc")},
+    "geometry/epipolar.py": {
+        "frame_rotations": ("frame_rotations_plain", "essential_frame")},
+    "rng.py": {"threefry2x32": ("threefry2x32_plain", "threefry2x32")},
+}
+
+
+def test_small_solvers_reach_their_kernels():
+    """Each of P5-P8's public functions takes its plain version on CPU
+    tensors and launches its kernel with `kernels.launch` on CUDA tensors,
+    with no `try` to fall back by; `essential_frame` reaches P7 through
+    `frame_rotations` after its P2 products; the source is built with
+    -fmad=false and holds each kernel the launch counters name."""
+    from rpe_tpu_torch.ops import kernels
+
+    for module, sites in SMALL_SOLVER_SITES.items():
+        path = ROOT / "rpe_tpu_torch" / module
+        fns = _functions(path)
+        for name, (plain, counter) in sites.items():
+            fn = fns[name]
+            assert plain in fns, (module, plain)
+            assert "kernels.launch" in _calls(fn), (module, name)
+            assert plain in _calls(fn), (module, name)
+            assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+            launch = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+                      and ast.unparse(n.func) == "kernels.launch"]
+            assert [ast.literal_eval(c.args[0]) for c in launch] == [counter]
+            assert kernels.KERNELS[counter] == "small_solvers"
+    assert "frame_rotations" in _calls(
+        _functions(ROOT / "rpe_tpu_torch" / "geometry" / "epipolar.py")[
+            "essential_frame"])
+    src, flags = kernels.SOURCES["small_solvers"]
+    assert "-fmad=false" in flags and "--use_fast_math" not in flags
+    text = (ROOT / "rpe_tpu_torch" / "csrc" / src).read_text()
+    for kernel in ("smallest_eigvec_kernel", "eigh3x3_kernel",
+                   "essential_frame_kernel", "threefry_kernel"):
+        assert f"{kernel}(" in text or f"{kernel}<" in text, kernel
 
 
 def test_sift_stages_reach_their_kernels():

@@ -193,3 +193,73 @@ def p4_judge(desc_k, desc_p, desc_d):
     e_pd = float((desc_p.double() - desc_d).abs().max()) if k.numel() else 0.0
     ok = bool(torch.isfinite(desc_k).all()) and e_kp <= 1e-5 and e_kd <= 1e-5
     return ok, e_kp, e_kd, e_pd
+
+
+# P5-P8 (csrc/small_solvers.cu): launch counter -> (module, public function,
+# plain version); geometry/homography.py binds `smallest_eigvec_sym` too
+SMALL_SOLVERS = {
+    "smallest_eigvec_sym": ("rpe_tpu_torch.geometry.eig",
+                            "smallest_eigvec_sym",
+                            "smallest_eigvec_sym_plain"),
+    "eigh3x3_desc": ("rpe_tpu_torch.geometry.eig", "eigh3x3_desc",
+                     "eigh3x3_desc_plain"),
+    "essential_frame": ("rpe_tpu_torch.geometry.epipolar",
+                        "frame_rotations", "frame_rotations_plain"),
+    "threefry2x32": ("rpe_tpu_torch.rng", "threefry2x32",
+                     "threefry2x32_plain"),
+}
+
+
+def _small_solver_sites():
+    """(module, attribute, launch counter) of every binding the estimator
+    calls P5-P8 through."""
+    import importlib
+
+    sites = [(importlib.import_module(m), f, k)
+             for k, (m, f, _) in SMALL_SOLVERS.items()]
+    homography = importlib.import_module("rpe_tpu_torch.geometry.homography")
+    return sites + [(homography, "smallest_eigvec_sym", "smallest_eigvec_sym")]
+
+
+def small_solvers_patched(wrap):
+    """A context manager that replaces every binding of P5-P8's public
+    functions by `wrap(name, fn)` (fn the public function, name its launch
+    counter) and restores them."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def patched():
+        sites = _small_solver_sites()
+        saved = [(m, f, getattr(m, f)) for m, f, _ in sites]
+        try:
+            for m, f, k in sites:
+                setattr(m, f, wrap(k, getattr(m, f)))
+            yield
+        finally:
+            for m, f, fn in saved:
+                setattr(m, f, fn)
+    return patched()
+
+
+def plain_small_solvers():
+    """A context manager under which P5-P8's public functions run their
+    plain versions on any device (the eager chains the kernels replace)."""
+    import importlib
+
+    def wrap(name, fn):
+        m, _, plain = SMALL_SOLVERS[name]
+        return getattr(importlib.import_module(m), plain)
+    return small_solvers_patched(wrap)
+
+
+def same_bits(a, b):
+    """Equal shapes, dtypes and bits, a NaN where the other has a NaN (of
+    any payload)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.dtype.is_floating_point:
+        return bool(torch.equal(a, b))
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) and bool(torch.equal(
+        torch.where(nan, 0.0, a).view(torch.int32),
+        torch.where(nan, 0.0, b).view(torch.int32)))
